@@ -1,0 +1,24 @@
+"""qec_ldpc_tpu_torch — the PyTorch / CUDA port of ``qec_ldpc_tpu``.
+
+The same Monte-Carlo decoding pipeline for quasi-cyclic CSS quantum-LDPC
+codes, written for an NVIDIA GPU: plain PyTorch functions on tensors with an
+explicit device, explicit ``torch.Generator``s, and hand-written Hopper CUDA
+kernels where the JAX package has Pallas TPU kernels.  The JAX package stays
+beside it as the reference the port is held against; this package never
+imports ``jax``.
+
+Layers (mirroring ``qec_ldpc_tpu``):
+  codes/     the JAX package's NumPy-only code layer, re-exported
+  decoder/   circulant layout, plain sum-product BP, X/Z decode + decisions
+  kernels/   hand-written CUDA kernels (csrc/) with their ctypes wrappers
+  sampling/  Pauli error sampling and outcome classification
+  parallel/  single-device Monte-Carlo driver
+  harness/   CodeStatistics record (reference-exact text)
+  convert    carries graphs, logical tests and configs across from JAX
+"""
+
+__version__ = "0.1.0"
+
+from qec_ldpc_tpu_torch.codes import QuantumLDPCCode, construct_code, load_code_file
+
+__all__ = ["QuantumLDPCCode", "construct_code", "load_code_file"]

@@ -1,0 +1,47 @@
+"""Carry the JAX package's decode-time objects across to the port.
+
+For this system the "parameters" are the exponent tables of the circulant
+graphs, the logical-test basis and the decode config.  These functions
+rebuild them as the port's objects, so that tests feed both packages the
+same structure.  They read the JAX objects' fields only and import no JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs
+from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
+from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig
+from qec_ldpc_tpu_torch.sampling.classify import RankBasisTest
+
+
+def graph_from_jax(graph) -> CirculantGraph:
+    """A ``qec_ldpc_tpu`` CirculantGraph -> the port's."""
+    return CirculantGraph.from_table(np.asarray(graph.table), graph.P)
+
+
+def graphs_from_jax(graphs) -> CodeGraphs:
+    """A ``qec_ldpc_tpu`` CodeGraphs -> the port's (the code is shared)."""
+    return CodeGraphs(code=graphs.code, x=graph_from_jax(graphs.x),
+                      z=graph_from_jax(graphs.z))
+
+
+def rank_basis_test_from_numpy(test, device: torch.device | str) -> RankBasisTest:
+    """A RankBasisTest whose fields are arrays (numpy or anything
+    ``np.asarray`` reads) -> the port's, on ``device``."""
+    def t(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return RankBasisTest(basis_x=t(test.basis_x, torch.int8),
+                         pivots_x=t(test.pivots_x, torch.int64),
+                         basis_z=t(test.basis_z, torch.int8),
+                         pivots_z=t(test.pivots_z, torch.int64))
+
+
+def bpconfig_from_jax(cfg) -> BPConfig:
+    """A ``qec_ldpc_tpu`` BPConfig -> the port's (same fields)."""
+    return BPConfig(**dataclasses.asdict(cfg))

@@ -1,0 +1,107 @@
+"""Sum-product BP through the hand-written CUDA kernel (csrc/bp_sum_product.cu).
+
+The port of ``qec_ldpc_tpu/kernels/bp_pallas.py::bp_run_pallas``: the whole
+BP loop of one circulant graph in one launch.  :func:`bp_run` checks its
+arguments, allocates the outputs, and launches the kernel on the current
+CUDA stream for a CUDA tensor; for a CPU tensor it runs the plain version,
+``decoder/sum_product.bp_run``.  There is no fallback: a CUDA tensor either
+runs the kernel or raises.
+
+``launches`` counts kernel launches (never the plain path), so a run can
+show that its decodes went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from qec_ldpc_tpu_torch.decoder import sum_product
+from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
+from qec_ldpc_tpu_torch.kernels import build
+
+#: the kernel's compile-time degree limits (kMaxB / kMaxL in the source)
+MAX_VAR_DEGREE = 8
+MAX_CHECK_DEGREE = 16
+
+SOURCES = ("bp_sum_product.cu",)
+
+#: number of kernel launches made by :func:`bp_run` in this process
+launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The built library with the launcher's C signature declared."""
+    lib = build.load("qec_bp", SOURCES)
+    fn = lib.qec_bp_sum_product
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def bp_run(
+    graph: CirculantGraph,
+    syndrome: torch.Tensor,   # (num_checks, batch) int32 in {0, 1}
+    prior: float,             # channel prior (already 2/3-scaled), float32
+    max_iters: int,
+    check_every: int = 10,
+    conv_low: float = 0.01,
+    conv_high: float = 0.99,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(v_final (num_edges, batch) f32, iters (batch,) int32)``.
+
+    Per lane, ``v_final`` equals the plain ``sum_product.bp_run`` bit for
+    bit.  ``iters`` is each lane's executed iteration count: the kernel
+    early-exits per tile of lanes, so a lane counts its tile's iterations;
+    the maximum over lanes is the plain loop's count."""
+    global launches
+    if not isinstance(graph, CirculantGraph):
+        raise TypeError(f"expected a CirculantGraph, got {type(graph).__name__}")
+    if syndrome.dtype != torch.int32:
+        raise TypeError(f"syndrome must be int32, got {syndrome.dtype}")
+    if syndrome.dim() != 2 or syndrome.shape[0] != graph.num_checks:
+        raise ValueError(f"syndrome shape {tuple(syndrome.shape)} does not "
+                         f"match ({graph.num_checks}, batch)")
+    if max_iters < 0 or check_every < 1:
+        raise ValueError(f"max_iters={max_iters} check_every={check_every}")
+    prior32 = np.float32(prior)
+    batch = syndrome.shape[1]
+    if syndrome.device.type == "cpu":
+        v, n = sum_product.bp_run(graph, syndrome, torch.tensor(prior32),
+                                  max_iters, check_every, conv_low, conv_high)
+        return v, n.expand(batch).clone()
+    if syndrome.device.type != "cuda":
+        raise ValueError(f"unsupported device {syndrome.device}")
+    if not syndrome.is_contiguous():
+        raise ValueError("syndrome must be contiguous")
+    if graph.B > MAX_VAR_DEGREE or graph.L > MAX_CHECK_DEGREE:
+        raise ValueError(f"graph degrees B={graph.B}, L={graph.L} exceed the "
+                         f"kernel's {MAX_VAR_DEGREE}, {MAX_CHECK_DEGREE}")
+    lib = _library()
+    v = torch.empty((graph.num_edges, batch), dtype=torch.float32,
+                    device=syndrome.device)
+    e = torch.empty_like(v)
+    iters = torch.empty((batch,), dtype=torch.int32, device=syndrome.device)
+    shifts = (ctypes.c_int32 * (graph.B * graph.L))(
+        *graph.table.astype(np.int32).ravel().tolist())
+    with torch.cuda.device(syndrome.device):
+        stream = torch.cuda.current_stream(syndrome.device).cuda_stream
+        err = lib.qec_bp_sum_product(
+            syndrome.data_ptr(), v.data_ptr(), e.data_ptr(), iters.data_ptr(),
+            shifts, graph.B, graph.L, graph.P, batch,
+            float(prior32), max_iters, check_every,
+            float(np.float32(conv_low)), float(np.float32(conv_high)), stream)
+    if err != 0:
+        raise RuntimeError(f"qec_bp_sum_product failed: cudaError_t {err}")
+    launches += 1
+    return v, iters

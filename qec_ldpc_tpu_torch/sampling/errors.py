@@ -1,0 +1,53 @@
+"""Random Pauli error generation with explicit ``torch.Generator``s.
+
+Same distributions as ``qec_ldpc_tpu/sampling/errors.py`` (the reference's
+weight-W model: W iid draws of a uniform qubit index and a uniform type in
+{x=0, y=1, z=2}; x|y sets the X bit, z|y sets the Z bit; a repeated index
+ORs its bits in and never clears one, so the effective weight can be < W).
+The random streams differ from JAX's: results are compared by distribution,
+or by feeding both packages the same draws (:func:`_accumulate_hits`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _accumulate_hits(idx: torch.Tensor, typ: torch.Tensor,
+                     n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x_errors, z_errors), each (n, batch) int8, from draws idx/typ
+    (W, batch).  A scatter with ``amax`` ORs the bits of colliding draws, so
+    a later Z draw never clears an earlier X bit on the same qubit."""
+    batch = idx.shape[1]
+    idx = idx.to(torch.int64)
+
+    def hits(bit: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros((n, batch), dtype=torch.int32, device=idx.device)
+        out.scatter_reduce_(0, idx, bit.to(torch.int32), reduce="amax")
+        return out.to(torch.int8)
+
+    return hits(typ <= 1), hits(typ >= 1)
+
+
+def sample_weight_w_errors(
+    generator: torch.Generator, n: int, weight: int, batch: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Draw ``batch`` weight-``weight`` Pauli errors over ``n`` qubits on
+    ``generator.device``.  Returns (x_errors, z_errors), each (n, batch)
+    int8 in {0, 1}."""
+    device = generator.device
+    idx = torch.randint(0, n, (weight, batch), generator=generator, device=device)
+    typ = torch.randint(0, 3, (weight, batch), generator=generator, device=device)
+    return _accumulate_hits(idx, typ, n)
+
+
+def sample_depolarizing_errors(
+    generator: torch.Generator, n: int, p: float, batch: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """I.i.d. depolarizing channel on ``generator.device``: each qubit errs
+    with probability ``p``; the error type is uniform over {X, Y, Z}."""
+    device = generator.device
+    err = torch.rand((n, batch), generator=generator, device=device) < p
+    typ = torch.randint(0, 3, (n, batch), generator=generator, device=device)
+    return ((err & (typ <= 1)).to(torch.int8),
+            (err & (typ >= 1)).to(torch.int8))

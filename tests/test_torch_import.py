@@ -1,0 +1,39 @@
+"""The PyTorch port stands apart from JAX: importing it loads no ``jax``, and
+no file of it imports ``jax`` or a JAX-importing part of ``qec_ldpc_tpu``."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "qec_ldpc_tpu_torch"
+PORT_FILES = sorted(p for p in PORT.rglob("*.py") if "_build" not in p.parts) + [
+    ROOT / "chip_smoke.py"]
+
+IMPORT_JAX = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
+# the only part of the JAX package the port may use is its NumPy code layer
+IMPORT_REFERENCE = re.compile(
+    r"^\s*(?:import|from)\s+qec_ldpc_tpu(?!_torch)(?!\.codes\b)\b", re.M)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys\n"
+            "import qec_ldpc_tpu_torch, qec_ldpc_tpu_torch.convert\n"
+            "import qec_ldpc_tpu_torch.decoder, qec_ldpc_tpu_torch.kernels.bp_cuda\n"
+            "import qec_ldpc_tpu_torch.sampling, qec_ldpc_tpu_torch.parallel\n"
+            "import qec_ldpc_tpu_torch.harness\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_file_imports_jax(path):
+    text = path.read_text()
+    assert not IMPORT_JAX.search(text), path
+    assert not IMPORT_REFERENCE.search(text), path
