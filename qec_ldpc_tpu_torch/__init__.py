@@ -9,10 +9,11 @@ imports ``jax``.
 
 Layers (mirroring ``qec_ldpc_tpu``):
   codes/     the JAX package's NumPy-only code layer, re-exported
-  decoder/   circulant layout, plain sum-product BP, X/Z decode + decisions
+  decoder/   circulant layout, plain sum-product, min-sum and layered
+             min-sum, X/Z decode + decisions, relay retries
   kernels/   hand-written CUDA kernels (csrc/) with their ctypes wrappers
   sampling/  Pauli error sampling and outcome classification
-  parallel/  single-device Monte-Carlo driver
+  parallel/  single-device Monte-Carlo loop (relay mode included)
   harness/   CodeStatistics record (reference-exact text)
   convert    carries graphs, logical tests and configs across from JAX
 """

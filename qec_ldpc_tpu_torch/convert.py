@@ -1,7 +1,8 @@
 """Carry the JAX package's decode-time objects across to the port.
 
 For this system the "parameters" are the exponent tables of the circulant
-graphs, the logical-test basis and the decode config.  These functions
+graphs, the logical-test basis, the decode config, the prior LLR and the
+relay decoder's damping draws.  These functions
 rebuild them as the port's objects, so that tests feed both packages the
 same structure.  They read the JAX objects' fields only and import no JAX.
 """
@@ -45,3 +46,17 @@ def rank_basis_test_from_numpy(test, device: torch.device | str) -> RankBasisTes
 def bpconfig_from_jax(cfg) -> BPConfig:
     """A ``qec_ldpc_tpu`` BPConfig -> the port's (same fields)."""
     return BPConfig(**dataclasses.asdict(cfg))
+
+
+def prior_llr_from_jax(llr) -> float:
+    """JAX's float32 prior LLR (``log1p(-p) - log(p)`` as XLA evaluates it)
+    -> the Python float the port's min-sum runs take.  XLA's ``log`` and
+    PyTorch's differ by an ulp or two on some priors, so a test that must
+    match JAX bit for bit carries JAX's value across."""
+    return float(np.float32(np.asarray(llr)))
+
+
+def float32_from_numpy(a, device: torch.device | str) -> torch.Tensor:
+    """A damping or gamma array (numpy, or anything ``np.asarray`` reads)
+    -> a contiguous float32 tensor on ``device``."""
+    return torch.tensor(np.asarray(a, dtype=np.float32), device=device)

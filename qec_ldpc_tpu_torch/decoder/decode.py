@@ -1,13 +1,22 @@
 """Full X/Z decode with hard decision and error-code flags (PyTorch).
 
-The port of ``qec_ldpc_tpu/decoder/decode.py`` for ``algorithm=
-"sum-product"``: decode the X and Z syndromes with BP, hard-decide each
-variable as flipped if ANY of its incident messages is >= 0.5 (the
-reference's any-edge rule), flag per-lane convergence failures from a final
-convergence pass, and flag syndrome failures by re-encoding the decision.
+The port of ``qec_ldpc_tpu/decoder/decode.py`` for circulant graphs: decode
+the X and Z syndromes with ``cfg.algorithm``, hard-decide each variable,
+flag per-lane convergence failures, and flag syndrome failures by
+re-encoding the decision.  Per algorithm:
 
-BP runs through ``kernels/bp_cuda.bp_run``: the CUDA kernel for CUDA
-tensors, the plain ``sum_product.bp_run`` for CPU tensors.
+  * ``"sum-product"``: flipped if ANY incident message is >= 0.5 (the
+    reference's any-edge rule); convergence failures from a final band test.
+    Runs through ``kernels/bp_cuda.bp_run``.
+  * ``"min-sum"``: the LLR image, flipped if any incident LLR is <= 0;
+    convergence failures from the LLR band test.  Runs through
+    ``kernels/min_sum_cuda.min_sum_run``.
+  * ``"layered-min-sum"``: flipped where the posterior LLR is <= 0; a
+    convergence failure IS a syndrome failure.  Runs through
+    ``kernels/layered_cuda.layered_run``.
+
+Each wrapper runs its CUDA kernel for CUDA tensors and its plain PyTorch
+version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,8 +28,15 @@ import torch
 
 from qec_ldpc_tpu_torch.codes import QuantumLDPCCode
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
+from qec_ldpc_tpu_torch.decoder.min_sum import (
+    _not_converged_mask_llr,
+    np_log_band,
+    prior_llr,
+)
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig, _not_converged_mask
-from qec_ldpc_tpu_torch.kernels import bp_cuda
+from qec_ldpc_tpu_torch.kernels import bp_cuda, layered_cuda, min_sum_cuda
+
+ALGORITHMS = ("sum-product", "min-sum", "layered-min-sum")
 
 # ErrorCode bit flags (the reference's Decoder.h)
 SUCCESS = 0
@@ -63,17 +79,50 @@ class DecodeResult:
 
 def decide(graph: CirculantGraph, v: torch.Tensor, syndrome: torch.Tensor,
            cfg: BPConfig):
-    """Decisions and failure flags from final BP messages ``v``.
+    """Decisions and failure flags from final messages ``v`` of
+    ``cfg.algorithm`` ("sum-product": probabilities, "min-sum": LLRs).
 
     Returns ``(decisions (num_vars, batch) int8, conv_fail (batch,) bool,
     syn_fail (batch,) bool)``.  A NaN message (0/0 on a saturated lane)
-    fails ``>=`` and sets no decision bit."""
+    fails both compares and sets no decision bit."""
     vv = graph.vn_view(graph.to_var(v))  # (B, num_vars, batch)
-    decisions = (vv >= cfg.hard_threshold).any(dim=0).to(torch.int8)
-    conv_fail = _not_converged_mask(v, cfg.conv_low, cfg.conv_high)
-    s_hat = graph.syndrome(decisions.to(torch.int32))
-    syn_fail = (s_hat != syndrome).any(dim=0)
-    return decisions, conv_fail, syn_fail
+    if cfg.algorithm == "min-sum":
+        decisions = (vv <= 0.0).any(dim=0).to(torch.int8)
+        conv_fail = _not_converged_mask_llr(v, np_log_band(cfg.conv_low))
+    else:
+        decisions = (vv >= cfg.hard_threshold).any(dim=0).to(torch.int8)
+        conv_fail = _not_converged_mask(v, cfg.conv_low, cfg.conv_high)
+    return decisions, conv_fail, syndrome_fail(graph, decisions, syndrome)
+
+
+def syndrome_fail(graph: CirculantGraph, decisions: torch.Tensor,
+                  syndrome: torch.Tensor) -> torch.Tensor:
+    """Per lane: the re-encoded decision differs from the syndrome."""
+    return (graph.syndrome(decisions.to(torch.int32)) != syndrome).any(dim=0)
+
+
+def _decode_one_graph(graph: CirculantGraph, syndrome: torch.Tensor,
+                      prior: np.float32, cfg: BPConfig):
+    """One graph: ``(decisions, conv_fail, syn_fail, lane_iters)``, with
+    ``lane_iters`` (batch,) each lane's executed iterations."""
+    if cfg.algorithm == "layered-min-sum":
+        q, lane_iters = layered_cuda.layered_run(
+            graph, syndrome, prior_llr(prior), cfg.max_iters,
+            cfg.layered_check_every, cfg.min_sum_alpha)
+        # layered keeps posteriors: the decision is q <= 0, and "failed to
+        # converge" is "the decision violates the syndrome"
+        decisions = (q <= 0.0).to(torch.int8)
+        syn_fail = syndrome_fail(graph, decisions, syndrome)
+        return decisions, syn_fail, syn_fail, lane_iters
+    if cfg.algorithm == "min-sum":
+        v, lane_iters = min_sum_cuda.min_sum_run(
+            graph, syndrome, prior_llr(prior), cfg.max_iters, cfg.check_every,
+            cfg.conv_low, cfg.min_sum_alpha)
+    else:
+        v, lane_iters = bp_cuda.bp_run(
+            graph, syndrome, prior, cfg.max_iters, cfg.check_every,
+            cfg.conv_low, cfg.conv_high)
+    return (*decide(graph, v, syndrome, cfg), lane_iters)
 
 
 def decode_batch(
@@ -83,11 +132,13 @@ def decode_batch(
     error_probability: float,
     cfg: BPConfig = BPConfig(),
 ) -> DecodeResult:
-    """Decode both graphs; ``cfg.algorithm`` must be ``"sum-product"``."""
-    if cfg.algorithm != "sum-product":
-        raise NotImplementedError(
-            f"algorithm={cfg.algorithm!r} is not ported yet (ROADMAP queue 1 "
-            f"item 7: min-sum and layered min-sum)")
+    """Decode both graphs with ``cfg.algorithm`` (one of ``ALGORITHMS``).
+
+    ``iter_samples_*`` counts executed lane-iterations: per-lane tile counts
+    on the kernel path, iterations x batch on the plain path, as in JAX."""
+    if cfg.algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {cfg.algorithm!r}; expected one "
+                         f"of {ALGORITHMS}")
     if cfg.kernel_roll_impl == "mxu":
         raise NotImplementedError(
             "kernel_roll_impl='mxu' is a TPU matrix-unit routing; the port "
@@ -100,11 +151,8 @@ def decode_batch(
     out = []
     for graph, syndrome in ((graphs.x, syndrome_x), (graphs.z, syndrome_z)):
         syndrome = syndrome.to(torch.int32).contiguous()
-        v, lane_iters = bp_cuda.bp_run(
-            graph, syndrome, prior, cfg.max_iters, cfg.check_every,
-            cfg.conv_low, cfg.conv_high)
-        out.append((*decide(graph, v, syndrome, cfg),
-                    lane_iters.max(), lane_iters.sum()))
+        *flags, lane_iters = _decode_one_graph(graph, syndrome, prior, cfg)
+        out.append((*flags, lane_iters.max(), lane_iters.sum()))
     (dx, cfx, sfx, itx, isx), (dz, cfz, sfz, itz, isz) = out
     code = (sfx.to(torch.int32) * SYNDROME_FAIL_X
             + sfz.to(torch.int32) * SYNDROME_FAIL_Z

@@ -1,0 +1,131 @@
+"""Relay / ensemble BP: randomized damped min-sum retries for BP failures.
+
+The port of ``qec_ldpc_tpu/decoder/relay.py``.  When the primary decode's
+hard decision violates the syndrome, the lane is decoded again by min-sum
+with RANDOM PER-VARIABLE DAMPING: each retry draws fresh
+``gamma ~ U[gamma_low, gamma_high)`` per (variable, lane) and blends
+``v = gamma * v_old + (1 - gamma) * v_new`` on every edge of the variable.
+The disorder breaks the trapping-set symmetries that pin flooding BP; a lane
+is repaired as soon as a retry's hard decision satisfies its syndrome, which
+an exact re-encode checks.  Retries run through
+``kernels/min_sum_cuda.min_sum_run`` with its damping operand: the CUDA
+kernel on a CUDA tensor, the plain version on a CPU tensor.
+
+Solved lanes get a zero syndrome, so they converge at the first convergence
+check and cost one check window.  The JAX version loops under
+``lax.while_loop`` until every lane is solved or the retries run out; here
+that condition is read on the host, so each retry costs one device-to-host
+read (``bool(solved.all())``), the port's image of the loop's ``cond``.
+Gammas come from an explicit ``torch.Generator``, so they cannot match JAX's
+keys: relay is held exactly on shared gammas and statistically end to end.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from qec_ldpc_tpu_torch.decoder.decode import (
+    SYNDROME_FAIL_X,
+    SYNDROME_FAIL_Z,
+    CodeGraphs,
+    DecodeResult,
+    decode_batch,
+    syndrome_fail,
+)
+from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
+from qec_ldpc_tpu_torch.decoder.min_sum import prior_llr
+from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig
+from qec_ldpc_tpu_torch.kernels import min_sum_cuda
+
+#: default damping-draw range gamma ~ U[GAMMA_LOW, GAMMA_HIGH), the JAX
+#: package's (tuned there on [[610,61]] W in {40, 50} and BB [[144,12,12]])
+GAMMA_LOW = 0.05
+GAMMA_HIGH = 1.0
+
+
+def uniform_gammas(generator: torch.Generator, num_vars: int, batch: int,
+                   low: float, high: float) -> Callable[[int], torch.Tensor]:
+    """Retry r -> a fresh (num_vars, batch) float32 draw from U[low, high),
+    taken from ``generator`` on its device."""
+    def draw(r: int) -> torch.Tensor:
+        u = torch.rand((num_vars, batch), generator=generator,
+                       device=generator.device, dtype=torch.float32)
+        return u * (high - low) + low
+    return draw
+
+
+def _relay_one_graph(graph: CirculantGraph, syndrome: torch.Tensor,
+                     llr: float, cfg: BPConfig,
+                     gammas: Callable[[int], torch.Tensor],
+                     decisions0: torch.Tensor, solved0: torch.Tensor,
+                     retries: int):
+    """Retry loop for one graph.  ``decisions0``/``solved0``: the primary
+    decode's hard decisions and per-lane syndrome-satisfied mask;
+    ``gammas(r)`` gives retry r's (num_vars, batch) damping draw.
+
+    Returns ``(decisions, solved, retries_used, extra_lane_iters)``: the
+    last counts the retries' executed min-sum lane-iterations (a 0-dim
+    tensor), so the work accounting stays honest under relay."""
+    decisions, solved = decisions0, solved0
+    lane_iters = torch.zeros((), dtype=torch.int64, device=syndrome.device)
+    r = 0
+    while r < retries and not bool(solved.all()):
+        damping = graph.expand_vars(gammas(r)).contiguous()
+        s_eff = torch.where(solved[None, :], 0, syndrome)
+        v, per_lane = min_sum_cuda.min_sum_run(
+            graph, s_eff, llr, cfg.max_iters, cfg.check_every, cfg.conv_low,
+            cfg.min_sum_alpha, damping=damping)
+        vv = graph.vn_view(graph.to_var(v))
+        d_new = (vv <= 0.0).any(dim=0).to(decisions.dtype)
+        newly = ~syndrome_fail(graph, d_new, syndrome) & ~solved
+        decisions = torch.where(newly[None, :], d_new, decisions)
+        solved = solved | newly
+        lane_iters = lane_iters + per_lane.sum()
+        r += 1
+    return decisions, solved, r, lane_iters
+
+
+def relay_decode_batch(
+    graphs: CodeGraphs,
+    syndrome_x: torch.Tensor,
+    syndrome_z: torch.Tensor,
+    error_probability: float,
+    generator: torch.Generator,
+    cfg: BPConfig = BPConfig(),
+    retries: int = 8,
+    gamma_low: float = GAMMA_LOW,
+    gamma_high: float = GAMMA_HIGH,
+) -> tuple[DecodeResult, int, int]:
+    """Primary decode (``cfg`` as configured) + relay retries for failed
+    lanes.  Returns ``(result, retries_x, retries_z)``: the primary
+    DecodeResult with decisions and error code replaced where a retry
+    repaired the lane.
+
+    SYNDROME_FAIL bits are cleared on repaired lanes; convergence-fail bits
+    keep their meaning from the primary decode.  The retries' executed
+    lane-iterations are added to ``iter_samples_x/z``.  The X retries draw
+    their gammas from ``generator`` first, then the Z retries."""
+    res = decode_batch(graphs, syndrome_x, syndrome_z, error_probability, cfg)
+    llr = prior_llr(np.float32(cfg.prior_factor) * np.float32(error_probability))
+    ec = res.error_code
+    out = {}
+    for name, bit, graph, syn, dec in (
+        ("x", SYNDROME_FAIL_X, graphs.x, syndrome_x, res.decisions_x),
+        ("z", SYNDROME_FAIL_Z, graphs.z, syndrome_z, res.decisions_z),
+    ):
+        syn = syn.to(torch.int32).contiguous()
+        gammas = uniform_gammas(generator, graph.num_vars, syn.shape[1],
+                                gamma_low, gamma_high)
+        d, solved, used, extra = _relay_one_graph(
+            graph, syn, llr, cfg, gammas, dec, (ec & bit) == 0, retries)
+        ec = torch.where(solved, ec & ~bit, ec)
+        out[name] = (d, used, extra)
+    result = dataclasses.replace(
+        res, decisions_x=out["x"][0], decisions_z=out["z"][0], error_code=ec,
+        iter_samples_x=res.iter_samples_x + out["x"][2],
+        iter_samples_z=res.iter_samples_z + out["z"][2])
+    return result, out["x"][1], out["z"][1]

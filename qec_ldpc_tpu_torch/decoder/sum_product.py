@@ -31,10 +31,11 @@ from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
 @dataclasses.dataclass(frozen=True)
 class BPConfig:
     """Decode-loop knobs: the same fields and defaults as the JAX
-    ``BPConfig`` so configs carry across unchanged.  The port runs
-    ``algorithm="sum-product"`` only; the ``kernel*`` fields select TPU
-    kernels and are kept only so the two configs compare equal — on a CUDA
-    tensor the decode always runs the CUDA kernel."""
+    ``BPConfig`` so configs carry across unchanged.  The port runs every
+    ``algorithm`` of the JAX package ("sum-product", "min-sum",
+    "layered-min-sum") on circulant graphs; the ``kernel*`` fields select
+    TPU kernels and are kept only so the two configs compare equal — on a
+    CUDA tensor the decode always runs the algorithm's CUDA kernel."""
 
     max_iters: int = 100
     check_every: int = 10

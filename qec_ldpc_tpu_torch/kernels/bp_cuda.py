@@ -21,7 +21,7 @@ import torch
 
 from qec_ldpc_tpu_torch.decoder import sum_product
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
-from qec_ldpc_tpu_torch.kernels import build
+from qec_ldpc_tpu_torch.kernels import build, launch
 
 #: the kernel's compile-time degree limits (kMaxB / kMaxL in the source)
 MAX_VAR_DEGREE = 8
@@ -65,43 +65,26 @@ def bp_run(
     early-exits per tile of lanes, so a lane counts its tile's iterations;
     the maximum over lanes is the plain loop's count."""
     global launches
-    if not isinstance(graph, CirculantGraph):
-        raise TypeError(f"expected a CirculantGraph, got {type(graph).__name__}")
-    if syndrome.dtype != torch.int32:
-        raise TypeError(f"syndrome must be int32, got {syndrome.dtype}")
-    if syndrome.dim() != 2 or syndrome.shape[0] != graph.num_checks:
-        raise ValueError(f"syndrome shape {tuple(syndrome.shape)} does not "
-                         f"match ({graph.num_checks}, batch)")
-    if max_iters < 0 or check_every < 1:
-        raise ValueError(f"max_iters={max_iters} check_every={check_every}")
+    launch.check_run_args(graph, syndrome, max_iters, check_every)
     prior32 = np.float32(prior)
     batch = syndrome.shape[1]
     if syndrome.device.type == "cpu":
         v, n = sum_product.bp_run(graph, syndrome, torch.tensor(prior32),
                                   max_iters, check_every, conv_low, conv_high)
         return v, n.expand(batch).clone()
-    if syndrome.device.type != "cuda":
-        raise ValueError(f"unsupported device {syndrome.device}")
-    if not syndrome.is_contiguous():
-        raise ValueError("syndrome must be contiguous")
-    if graph.B > MAX_VAR_DEGREE or graph.L > MAX_CHECK_DEGREE:
-        raise ValueError(f"graph degrees B={graph.B}, L={graph.L} exceed the "
-                         f"kernel's {MAX_VAR_DEGREE}, {MAX_CHECK_DEGREE}")
+    launch.check_cuda_args(graph, syndrome, MAX_VAR_DEGREE, MAX_CHECK_DEGREE)
     lib = _library()
     v = torch.empty((graph.num_edges, batch), dtype=torch.float32,
                     device=syndrome.device)
     e = torch.empty_like(v)
     iters = torch.empty((batch,), dtype=torch.int32, device=syndrome.device)
-    shifts = (ctypes.c_int32 * (graph.B * graph.L))(
-        *graph.table.astype(np.int32).ravel().tolist())
     with torch.cuda.device(syndrome.device):
-        stream = torch.cuda.current_stream(syndrome.device).cuda_stream
         err = lib.qec_bp_sum_product(
             syndrome.data_ptr(), v.data_ptr(), e.data_ptr(), iters.data_ptr(),
-            shifts, graph.B, graph.L, graph.P, batch,
+            launch.shift_table(graph), graph.B, graph.L, graph.P, batch,
             float(prior32), max_iters, check_every,
-            float(np.float32(conv_low)), float(np.float32(conv_high)), stream)
-    if err != 0:
-        raise RuntimeError(f"qec_bp_sum_product failed: cudaError_t {err}")
+            float(np.float32(conv_low)), float(np.float32(conv_high)),
+            launch.stream_of(syndrome.device))
+    launch.raise_on_error("qec_bp_sum_product", err)
     launches += 1
     return v, iters

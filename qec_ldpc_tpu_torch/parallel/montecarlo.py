@@ -3,12 +3,15 @@
 The port of ``qec_ldpc_tpu/parallel/montecarlo.py::run_monte_carlo`` without
 a mesh.  Each chunk runs the whole pipeline on one device:
 
-  sample errors -> syndromes -> X/Z BP decode -> classify -> counters.
+  sample errors -> syndromes -> X/Z decode [-> relay retries] -> classify
+  -> counters.
 
-Per-chunk randomness comes from a ``torch.Generator`` on the device seeded
-from (seed, global chunk id), so the statistics do not depend on how chunks
-are grouped.  Counters stay on the device for a whole group of
-``steps_per_call`` chunks; the host reads them once per group.
+Per-chunk randomness comes from ``torch.Generator``s on the device seeded
+from (seed, global chunk id) — one for the errors and, with
+``relay_retries > 0``, one for the relay decoder's damping draws — so the
+statistics do not depend on how chunks are grouped.  Counters stay on the
+device for a whole group of ``steps_per_call`` chunks; the host reads them
+once per group.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs, decode_batch
+from qec_ldpc_tpu_torch.decoder.relay import relay_decode_batch
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig
 from qec_ldpc_tpu_torch.sampling.classify import (
     NUM_COUNTERS,
@@ -30,14 +34,32 @@ from qec_ldpc_tpu_torch.sampling.errors import (
 )
 
 
-def chunk_generator(seed: int, chunk: int,
-                    device: torch.device | str) -> torch.Generator:
-    """The generator of global chunk ``chunk``: a function of (seed, chunk)
-    alone, mixed by NumPy's SeedSequence into a 64-bit seed."""
-    state = np.random.SeedSequence([seed, chunk]).generate_state(2, np.uint32)
+#: the relay stream's tag: the JAX package's fold_in constant ("RELA")
+RELAY_STREAM = 0x52454C41
+
+
+def _generator(entropy: list[int], device: torch.device | str) -> torch.Generator:
+    """A generator seeded from ``entropy`` alone, mixed by NumPy's
+    SeedSequence into a 64-bit seed."""
+    state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     g = torch.Generator(device=device)
     g.manual_seed(int(state[0]) | (int(state[1]) << 32))
     return g
+
+
+def chunk_generator(seed: int, chunk: int,
+                    device: torch.device | str) -> torch.Generator:
+    """The error generator of global chunk ``chunk``: a function of
+    (seed, chunk) alone."""
+    return _generator([seed, chunk], device)
+
+
+def relay_generator(seed: int, chunk: int,
+                    device: torch.device | str) -> torch.Generator:
+    """The relay (damping-draw) generator of global chunk ``chunk``: a
+    function of (seed, chunk, RELAY_STREAM) alone, independent of the
+    error stream."""
+    return _generator([seed, chunk, RELAY_STREAM], device)
 
 
 def _resolve_logical_test(graphs: CodeGraphs, i_minus_p, device):
@@ -52,9 +74,11 @@ def _resolve_logical_test(graphs: CodeGraphs, i_minus_p, device):
 
 def _sample_and_decode(graphs: CodeGraphs, generator: torch.Generator,
                        weight: int, error_probability: float, cfg: BPConfig,
-                       batch: int, error_model: str):
-    """Sample errors -> syndromes -> decode.  Returns (xe, ze, sx, sz, res)
-    with errors as int32."""
+                       batch: int, error_model: str, relay_retries: int = 0,
+                       relay_gen: torch.Generator | None = None):
+    """Sample errors -> syndromes -> decode (relay-repaired when
+    ``relay_retries > 0``, drawing its gammas from ``relay_gen``).  Returns
+    (xe, ze, sx, sz, res) with errors as int32."""
     n = graphs.code.n
     if error_model == "weight":
         xe, ze = sample_weight_w_errors(generator, n, weight, batch)
@@ -67,18 +91,24 @@ def _sample_and_decode(graphs: CodeGraphs, generator: torch.Generator,
     ze_i = ze.to(torch.int32)
     sx = graphs.x.syndrome(xe_i)
     sz = graphs.z.syndrome(ze_i)
-    res = decode_batch(graphs, sx, sz, error_probability, cfg)
+    if relay_retries > 0:
+        res, _, _ = relay_decode_batch(graphs, sx, sz, error_probability,
+                                       relay_gen, cfg, retries=relay_retries)
+    else:
+        res = decode_batch(graphs, sx, sz, error_probability, cfg)
     return xe_i, ze_i, sx, sz, res
 
 
 def _chunk_body(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
                 weight: int, error_probability: float, cfg: BPConfig,
-                batch: int, error_model: str):
+                batch: int, error_model: str, relay_retries: int = 0,
+                relay_gen: torch.Generator | None = None):
     """Sample + decode + classify one batch.  Returns device tensors
     (counters[NUM_COUNTERS] int32, iters[2]) with iters the executed BP
-    lane-iterations for [X, Z]."""
+    lane-iterations for [X, Z], relay retries included."""
     xe_i, ze_i, _, _, res = _sample_and_decode(
-        graphs, generator, weight, error_probability, cfg, batch, error_model)
+        graphs, generator, weight, error_probability, cfg, batch, error_model,
+        relay_retries, relay_gen)
     counters = classify_batch(i_minus_p, xe_i, ze_i,
                               res.decisions_x.to(torch.int32),
                               res.decisions_z.to(torch.int32),
@@ -134,16 +164,15 @@ def run_monte_carlo(
     counters, lane_iters)`` is called per group and ``start_chunk`` /
     ``init_counters`` resume at a group boundary.  ``i_minus_p``: a dense
     (2n x 2n) matrix or a RankBasisTest; defaults to the rank-basis test of
-    ``graphs.code``.
+    ``graphs.code``.  ``relay_retries > 0`` repairs BP failures with that
+    many damped min-sum retries (decoder/relay.py); each retry reads one
+    flag from the device.
 
     Returns (counters[NUM_COUNTERS] int64 numpy, total_bp_lane_iterations).
     """
     if mesh is not None:
         raise NotImplementedError("mesh runs are not ported yet (ROADMAP "
                                   "queue 1 item 12)")
-    if relay_retries:
-        raise NotImplementedError("relay decoding is not ported yet (ROADMAP "
-                                  "queue 1 item 8)")
     if weight_cap is not None:
         raise NotImplementedError("the dynamic-weight sampler is not ported "
                                   "yet (ROADMAP queue 1 item 11)")
@@ -164,7 +193,9 @@ def run_monte_carlo(
             cnt, its = _chunk_body(graphs, i_minus_p,
                                    chunk_generator(seed, c, device), weight,
                                    error_probability, cfg, batch_size,
-                                   error_model)
+                                   error_model, relay_retries,
+                                   relay_generator(seed, c, device)
+                                   if relay_retries > 0 else None)
             counters += cnt
             iters += its
         host = torch.cat([counters, iters]).cpu().numpy()  # one fetch

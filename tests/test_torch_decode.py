@@ -1,8 +1,9 @@
 """The port's decode_batch against the JAX package's, exactly.
 
-Same syndromes (NumPy draws) through both; decisions, error codes and the
-max iteration counts must be equal (the port's ``iter_samples_*`` counts its
-own executed work and is not compared).
+Same syndromes (NumPy draws) through both, for every decode algorithm
+(sum-product, min-sum, layered min-sum); decisions, error codes, the max
+iteration counts and, on the plain path, the executed lane-iterations must
+be equal.
 """
 
 import dataclasses
@@ -63,8 +64,22 @@ def test_syndromes_match(case):
     JaxBPConfig(max_iters=100, check_every=10),
     JaxBPConfig(max_iters=25, check_every=26),
     JaxBPConfig(max_iters=40, check_every=7, conv_low=0.05, conv_high=0.9),
-], ids=["early-exit", "fixed-25", "band"])
+    JaxBPConfig(max_iters=100, check_every=10, algorithm="min-sum"),
+    JaxBPConfig(max_iters=25, check_every=26, algorithm="min-sum"),
+    JaxBPConfig(max_iters=40, check_every=7, conv_low=0.05,
+                algorithm="min-sum"),
+    JaxBPConfig(max_iters=100, algorithm="layered-min-sum"),
+    JaxBPConfig(max_iters=25, layered_check_every=26,
+                algorithm="layered-min-sum"),
+    JaxBPConfig(max_iters=40, layered_check_every=4,
+                algorithm="layered-min-sum"),
+], ids=["early-exit", "fixed-25", "band", "min-sum-early-exit",
+        "min-sum-fixed-25", "min-sum-band", "layered-early-exit",
+        "layered-fixed-25", "layered-every-4"])
 def test_decode_batch_exact_vs_jax(case, cfg):
+    """Every algorithm: decisions, error codes and iteration counts equal
+    JAX's; on the plain path ``iter_samples`` is iterations x batch, as in
+    JAX."""
     jg, tg, xe, ze = case
     sx, sz = (np.array(s) for s in jax.jit(
         lambda a, b: jax_syndromes(jg, a, b))(xe, ze))
@@ -79,11 +94,10 @@ def test_decode_batch_exact_vs_jax(case, cfg):
     assert int(got.iters_x) == int(want.iters_x)
     assert int(got.iters_z) == int(want.iters_z)
     assert int(got.iter_samples_x) == int(got.iters_x) * BATCH
+    assert int(got.iter_samples_z) == int(want.iter_samples_z)
 
 
 @pytest.mark.parametrize("change", [
-    {"algorithm": "min-sum"},
-    {"algorithm": "layered-min-sum"},
     {"kernel_roll_impl": "mxu"},
     {"return_soft": True},
 ])
@@ -92,3 +106,10 @@ def test_unported_options_raise(case, change):
     s = torch.zeros((tg.x.num_checks, 4), dtype=torch.int32)
     with pytest.raises(NotImplementedError):
         decode_batch(tg, s, s, 0.01, dataclasses.replace(BPConfig(), **change))
+
+
+def test_unknown_algorithm_raises(case):
+    _, tg, _, _ = case
+    s = torch.zeros((tg.x.num_checks, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        decode_batch(tg, s, s, 0.01, BPConfig(algorithm="bit-flip"))

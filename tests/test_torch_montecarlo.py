@@ -1,5 +1,6 @@
-"""The slice as a whole: sample -> syndromes -> decode -> classify ->
-counters -> CodeStatistics, in the port against the JAX package."""
+"""The slice as a whole: sample -> syndromes -> decode [-> relay] ->
+classify -> counters -> CodeStatistics, in the port against the JAX
+package, for every decode algorithm."""
 
 import math
 
@@ -26,10 +27,23 @@ from qec_ldpc_tpu_torch.convert import (
 from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs, decode_batch
 from qec_ldpc_tpu_torch.harness import stats
 from qec_ldpc_tpu_torch.parallel.montecarlo import (
+    RELAY_STREAM,
+    chunk_generator,
     effective_steps_per_call,
+    relay_generator,
     run_monte_carlo,
 )
-from qec_ldpc_tpu_torch.sampling import C_CORRECTED, C_TESTED, classify_batch
+from qec_ldpc_tpu_torch.sampling import (
+    C_CONV_X,
+    C_CONV_Z,
+    C_CORRECTED,
+    C_SYN_X,
+    C_SYN_Z,
+    C_TESTED,
+    C_X_TESTED,
+    C_Z_TESTED,
+    classify_batch,
+)
 
 CODES = {"42": ((3, 3, 6, 7, 2, 3), 3), "610": ((4, 5, 10, 61, 9, 49), 15)}
 
@@ -125,6 +139,62 @@ def test_corrected_fraction_agrees_with_jax(g42):
     assert abs(z) < 4, (p1, p2, z)
 
 
+@pytest.mark.parametrize("algorithm,weight,count,relay_retries", [
+    ("min-sum", 2, 8192, 0),
+    ("layered-min-sum", 2, 8192, 0),
+    ("min-sum", 4, 2048, 8),
+], ids=["min-sum", "layered-min-sum", "relay"])
+def test_algorithm_corrected_fraction_agrees_with_jax(g42, algorithm, weight,
+                                                      count, relay_retries):
+    """Min-sum, layered min-sum and relay-repaired min-sum through both
+    packages: different random streams, same distribution (two-sample
+    z-test on the corrected fraction)."""
+    jcfg = JaxBPConfig(max_iters=100, algorithm=algorithm)
+    t, t_iters = run_monte_carlo(g42, weight, count, 0.02,
+                                 bpconfig_from_jax(jcfg), seed=12,
+                                 batch_size=1024, steps_per_call=8,
+                                 relay_retries=relay_retries, device="cpu")
+    jg = JaxCodeGraphs.build(g42.code)
+    j, _ = jax_run_monte_carlo(jg, weight, count, 0.02, jcfg, seed=12,
+                               batch_size=1024, steps_per_call=8,
+                               relay_retries=relay_retries)
+    assert t[C_TESTED] == j[C_TESTED] == count and t_iters > 0
+    p1, p2 = t[C_CORRECTED] / t[C_TESTED], j[C_CORRECTED] / j[C_TESTED]
+    pool = (t[C_CORRECTED] + j[C_CORRECTED]) / (t[C_TESTED] + j[C_TESTED])
+    z = (p1 - p2) / math.sqrt(pool * (1 - pool) * (1 / t[C_TESTED] + 1 / j[C_TESTED]))
+    assert abs(z) < 4, (p1, p2, z)
+
+
+def test_relay_deterministic_in_seed_and_grouping(g42):
+    """The relay stream is a function of (seed, chunk) alone: grouping does
+    not change the counters or the work count, and relay changes only what
+    the primary decode failed."""
+    cfg = BPConfig(max_iters=100, algorithm="min-sum")
+    runs = [run_monte_carlo(g42, 4, 4 * 128, 0.02, cfg, seed=5, batch_size=128,
+                            steps_per_call=spc, relay_retries=4, device="cpu")
+            for spc in (1, 2, 4)]
+    for counters, iters in runs[1:]:
+        np.testing.assert_array_equal(counters, runs[0][0])
+        assert iters == runs[0][1]
+    base, base_iters = run_monte_carlo(g42, 4, 4 * 128, 0.02, cfg, seed=5,
+                                       batch_size=128, device="cpu")
+    relayed = runs[0][0]
+    assert relayed[C_CORRECTED] > base[C_CORRECTED]
+    assert runs[0][1] > base_iters
+    for c in (C_TESTED, C_X_TESTED, C_Z_TESTED, C_CONV_X, C_CONV_Z):
+        assert relayed[c] == base[c]
+    assert relayed[C_SYN_X] < base[C_SYN_X] and relayed[C_SYN_Z] < base[C_SYN_Z]
+
+
+def test_relay_generator_is_its_own_stream():
+    a = relay_generator(5, 3, "cpu")
+    b = chunk_generator(5, 3, "cpu")
+    c = relay_generator(5, 3, "cpu")
+    assert not torch.equal(a.get_state(), b.get_state())
+    assert torch.equal(a.get_state(), c.get_state())
+    assert RELAY_STREAM == 0x52454C41
+
+
 def test_dense_logical_test_matches_rank_basis(g42):
     cfg = BPConfig(max_iters=100)
     a, _ = run_monte_carlo(g42, 3, 256, 0.02, cfg, seed=3, batch_size=128,
@@ -134,8 +204,7 @@ def test_dense_logical_test_matches_rank_basis(g42):
     np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"relay_retries": 2},
-                                    {"weight_cap": 8},
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"weight_cap": 8},
                                     {"error_model": "sideways"}])
 def test_unported_run_options_raise(g42, kwargs):
     with pytest.raises((NotImplementedError, ValueError)):
