@@ -7,12 +7,15 @@ Drives each decode path of the port through ``run_monte_carlo``, the entry
 point a user calls, and holds every CUDA kernel of those paths against its
 plain PyTorch version on the card.  The headline workload is the
 reference's: the [[610,61]] code, weight-15 Pauli errors, p = 0.01, up to
-100 iterations.  Fails (non-zero exit) if any phase fails:
+100 iterations; the lifted-graph workload is bench.py's ``bicycle_gross``
+line: the gross code [[144,12,12]], depolarizing p = 0.01.  Fails (non-zero
+exit) if any phase fails:
 
   1. device  needs CUDA; prints the card's name and power limit
-  2. build   compiles the three CUDA sources (csrc/bp_sum_product.cu,
-             min_sum.cu, layered_min_sum.cu) with nvcc, all at once, and
-             prints ptxas's register and spill lines
+  2. build   compiles the five CUDA sources (csrc/bp_sum_product.cu,
+             min_sum.cu, layered_min_sum.cu, lifted_min_sum.cu,
+             lifted_bp.cu) with nvcc, all at once, and prints ptxas's
+             register and spill lines
   3. check   K1 (sum-product) vs the plain PyTorch BP on the card:
              [[610,61]] X and Z at batch 2048, early exit and fixed 100
              iterations, and the [[42]] code at 30 fixed iterations
@@ -42,11 +45,30 @@ reference's: the [[610,61]] code, weight-15 Pauli errors, p = 0.01, up to
              held to the JAX package's tuning run (509 failures in 12,288
              samples, 0.7367 repaired) by two-proportion tests (|z| < 4),
              and every repaired lane must satisfy its syndrome
+ 10. check   K5 (lifted min-sum) and K6 (lifted sum-product): the gross
+             code X and Z at batch 2048 with early exit and fixed 100
+             iterations, K5 damped with random gammas, the d=32 toric code
+             X and Z at 20 fixed iterations (P = 1024, which must not take
+             the circulant wide route) and [[756,16,34]] X at 20 fixed
+             iterations
+ 11. time    K5 and K6: 100 iterations on the gross X graph, batch 2048,
+             kernel vs plain
+ 12. main    run_monte_carlo on the gross code, depolarizing p = 0.01, 64
+             chunks of 2048: min-sum held to the JAX package's record
+             (benchmarks/results/bicycle_gross_r3.jsonl line 2) and
+             sum-product to a JAX-package CPU run (GROSS_SUM_PRODUCT) by
+             two-proportion tests (|z| < 4); each run launches its kernel
+             twice per chunk and syncs at most once per group
+ 13. relay   the gross code at p = 0.03, min-sum with 8 relay retries, 4
+             chunks: K5 must launch damped retries and every repaired lane
+             must satisfy its syndrome; the repair rate is printed
 
 A check passes with 0 mismatches: finite messages bit for bit, NaN masks,
 decisions, failure flags and the max iteration count.  The last three lines
 are the card's ``nvidia-smi`` name and power limit, a JSON object
-describing each kernel, and ``{"ok": true, "device": {...}}``.
+describing each kernel (with its bound: the larger of its float operations
+over 67 TFLOP/s and its bytes over 3.35 TB/s), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -63,7 +85,7 @@ import numpy as np
 import torch
 
 from qec_ldpc_tpu_torch import construct_code
-from qec_ldpc_tpu_torch.codes import find_code_params
+from qec_ldpc_tpu_torch.codes import find_code_params, known_bicycle_code, toric_code
 from qec_ldpc_tpu_torch.decoder import layered, min_sum, sum_product
 from qec_ldpc_tpu_torch.decoder.decode import (
     BPConfig,
@@ -74,7 +96,14 @@ from qec_ldpc_tpu_torch.decoder.decode import (
 )
 from qec_ldpc_tpu_torch.decoder.relay import relay_decode_batch
 from qec_ldpc_tpu_torch.harness.stats import CodeStatistics
-from qec_ldpc_tpu_torch.kernels import bp_cuda, build, layered_cuda, min_sum_cuda
+from qec_ldpc_tpu_torch.kernels import (
+    bp_cuda,
+    build,
+    layered_cuda,
+    lifted_bp_cuda,
+    lifted_min_sum_cuda,
+    min_sum_cuda,
+)
 from qec_ldpc_tpu_torch.parallel.montecarlo import (
     chunk_generator,
     relay_generator,
@@ -86,15 +115,31 @@ from qec_ldpc_tpu_torch.sampling import (
     C_TESTED,
     make_rank_basis_test,
 )
-from qec_ldpc_tpu_torch.sampling.errors import sample_weight_w_errors
+from qec_ldpc_tpu_torch.sampling.errors import (
+    sample_depolarizing_errors,
+    sample_weight_w_errors,
+)
+
+from workloads import (
+    BATCH,
+    CHUNKS,
+    GROSS,
+    GROSS_P,
+    GROSS_RELAY_CHUNKS,
+    GROSS_RELAY_P,
+    GROSS_RELAY_RETRIES,
+    HEADLINE_CODE,
+    MAX_ITERS,
+    P_ERR,
+    RELAY_CHUNKS,
+    RELAY_P,
+    RELAY_RETRIES,
+    RELAY_WEIGHT,
+    STEPS_PER_CALL,
+    WEIGHT,
+)
 
 REFERENCE_CORRECTED_FRACTION = 0.99539  # bench.py: the reference's 100k run
-BATCH = 2048
-WEIGHT = 15
-P_ERR = 0.01
-MAX_ITERS = 100
-CHUNKS = 64
-STEPS_PER_CALL = 8
 # the P=1051 probe of benchmarks/large_code_real.py (min-sum, 10 iterations,
 # W = round(15 n / 610)); the JAX package's XLA and Pallas rows agree:
 # 1861 of 2048 corrected (benchmarks/data/large_code_real_r5.jsonl:18-22)
@@ -102,16 +147,43 @@ PROBE_P = 1051
 PROBE_ITERS = 10
 PROBE_CHUNKS = 4
 PROBE_CORRECTED = (1861, 2048)
-# the relay setting of benchmarks/data/relay_tuning_r4.jsonl line 6
-RELAY_WEIGHT = 40
-RELAY_P = 0.02
-RELAY_RETRIES = 16
-RELAY_CHUNKS = 8
+# the JAX package's tuning run at the relay setting (RELAY_*)
 RELAY_BP_FAILURES = (509, 12288)
 RELAY_REPAIRED = (375, 509)  # repair rate 0.7367
+# the JAX package's min-sum record at the gross setting: corrected 0.999454 of
+# 262,144 (benchmarks/results/bicycle_gross_r3.jsonl line 2)
+GROSS_MIN_SUM_CORRECTED = (262001, 262144)
+# the JAX package's sum-product (XLA path) on the CPU at this setting,
+# counters [262144, 162528, 162472, 261945, 109, 90, 1, 0, 1] from
+#   run_monte_carlo(known_bicycle_code("[[144,12,12]]").build_graphs(), 0,
+#       262144, 0.01, BPConfig(max_iters=100, kernel="xla"), seed=1,
+#       batch_size=2048, error_model="depolarizing", steps_per_call=8)
+GROSS_SUM_PRODUCT_CORRECTED = (261945, 262144)
 
 LIBRARIES = (("qec_bp", bp_cuda.SOURCES), ("qec_min_sum", min_sum_cuda.SOURCES),
-             ("qec_layered", layered_cuda.SOURCES))
+             ("qec_layered", layered_cuda.SOURCES),
+             ("qec_lifted_min_sum", lifted_min_sum_cuda.SOURCES),
+             ("qec_lifted_bp", lifted_bp_cuda.SOURCES))
+KERNEL_MODULES = (bp_cuda, min_sum_cuda, layered_cuda, lifted_min_sum_cuda,
+                  lifted_bp_cuda)
+
+# The bound of a fixed-work decode: the larger of its float operations over
+# the H100 SXM's 67 TFLOP/s (float32 outside the tensor cores) and its bytes
+# over 3.35 TB/s (each input read once, each output written once).  The
+# operations per edge and iteration are counted from the plain versions:
+#   sum-product  CN 1-2v (2), prefix/suffix/leave-one-out products (3),
+#                0.5 - s*prod (2); VN 1-e (1), products of e and 1-e (6),
+#                p*prod (1), fma (2), division (1)                      = 18
+#   min-sum      CN |v|, sign, 3 minima, 3 sign products, 3 multiplies
+#                (11); VN prefix/suffix/leave-one-out sums, + prior (4) = 15
+#   damped       + 1-d, d*v, fma (4)                                    = 19
+#   layered      t = q - r (1), |t|, sign, 3 minima, 3 sign products,
+#                3 multiplies (11), q = t + r (1)                       = 13
+# The convergence tests of a fixed-work run (n = 0 only) are left out.
+PEAK_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+OPS_PER_EDGE_ITERATION = {"sum-product": 18, "min-sum": 15,
+                          "min-sum-damped": 19, "layered": 13}
 
 
 def check(ok: bool, what: str) -> None:
@@ -129,13 +201,33 @@ def reset_counts() -> None:
     min_sum_cuda.launches = 0
     min_sum_cuda.wide_launches = 0
     layered_cuda.launches = 0
+    lifted_min_sum_cuda.launches = 0
+    lifted_bp_cuda.launches = 0
 
 
 def read_counts() -> dict[str, int]:
     return {"bp_sum_product": bp_cuda.launches,
             "min_sum": min_sum_cuda.launches,
             "min_sum_wide": min_sum_cuda.wide_launches,
-            "layered_min_sum": layered_cuda.launches}
+            "layered_min_sum": layered_cuda.launches,
+            "lifted_min_sum": lifted_min_sum_cuda.launches,
+            "lifted_bp": lifted_bp_cuda.launches}
+
+
+def bound(graph, batch: int, iters: int, algorithm: str,
+          out_rows: int | None = None) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for ``iters`` fixed iterations of ``algorithm`` on ``graph`` at
+    ``batch``.  Bytes: the int32 syndrome and (damped) the float32 damping
+    read once, the float32 output (``out_rows`` rows, default one per edge)
+    and the int32 iteration counts written once."""
+    out_rows = graph.num_edges if out_rows is None else out_rows
+    nbytes = 4 * batch * (graph.num_checks + out_rows + 1)
+    if algorithm == "min-sum-damped":
+        nbytes += 4 * batch * graph.num_edges
+    flops = OPS_PER_EDGE_ITERATION[algorithm] * graph.num_edges * batch * iters
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
 def two_proportion_z(k1: int, n1: int, k2: int, n2: int) -> float:
@@ -143,9 +235,15 @@ def two_proportion_z(k1: int, n1: int, k2: int, n2: int) -> float:
     return (k1 / n1 - k2 / n2) / math.sqrt(pool * (1 - pool) * (1 / n1 + 1 / n2))
 
 
-def syndromes(graphs: CodeGraphs, weight: int, seed: int, device):
-    xe, ze = sample_weight_w_errors(chunk_generator(seed, 0, device),
-                                    graphs.code.n, weight, BATCH)
+def syndromes(graphs: CodeGraphs, weight: int, seed: int, device,
+              p_err: float | None = None):
+    """One batch of syndromes: weight-``weight`` Pauli errors, or
+    depolarizing ones at ``p_err``."""
+    gen = chunk_generator(seed, 0, device)
+    if p_err is None:
+        xe, ze = sample_weight_w_errors(gen, graphs.code.n, weight, BATCH)
+    else:
+        xe, ze = sample_depolarizing_errors(gen, graphs.code.n, p_err, BATCH)
     return (graphs.x.syndrome(xe.to(torch.int32)),
             graphs.z.syndrome(ze.to(torch.int32)))
 
@@ -273,7 +371,8 @@ def count_syncs(fn) -> int:
 
 def monte_carlo(label: str, graphs: CodeGraphs, weight: int, p_err: float,
                 cfg: BPConfig, chunks: int, seed: int, logical_test,
-                device, relay_retries: int = 0, steps_per_call=STEPS_PER_CALL):
+                device, relay_retries: int = 0, steps_per_call=STEPS_PER_CALL,
+                error_model: str = "weight"):
     """One main-path run through ``run_monte_carlo`` with every launch
     count set to 0 just before it and read just after.  A 2-group warm-up
     first counts the host syncs.  Returns (counters, lane_iters, seconds,
@@ -281,13 +380,14 @@ def monte_carlo(label: str, graphs: CodeGraphs, weight: int, p_err: float,
     syncs = count_syncs(lambda: run_monte_carlo(
         graphs, weight, 4 * BATCH, p_err, cfg, seed=0, batch_size=BATCH,
         steps_per_call=2, relay_retries=relay_retries,
-        i_minus_p=logical_test, device=device))
+        i_minus_p=logical_test, error_model=error_model, device=device))
     reset_counts()
     t0 = time.perf_counter()
     counters, lane_iters = run_monte_carlo(
         graphs, weight, chunks * BATCH, p_err, cfg, seed=seed,
         batch_size=BATCH, steps_per_call=steps_per_call,
-        relay_retries=relay_retries, i_minus_p=logical_test, device=device)
+        relay_retries=relay_retries, i_minus_p=logical_test,
+        error_model=error_model, device=device)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
@@ -329,9 +429,40 @@ def gate_headline(label: str, counters, two_sided: bool) -> None:
               f"{label}: corrected fraction {frac} below 0.99539 - 4 sigma")
 
 
+def gate_two_proportion(label: str, counters, reference) -> None:
+    """The corrected fraction agrees with a JAX-package record
+    (corrected, tested) by a two-proportion test, |z| < 4."""
+    z = two_proportion_z(int(counters[C_CORRECTED]), int(counters[C_TESTED]),
+                         *reference)
+    say("gate", path=label,
+        corrected_fraction=f"{counters[C_CORRECTED] / counters[C_TESTED]:.6f}",
+        reference=f"{reference[0] / reference[1]:.6f}", z=f"{z:+.2f}")
+    check(abs(z) < 4, f"{label}: corrected fraction off the JAX package's "
+                      f"(z={z})")
+
+
 def bp_failures(counters) -> int:
     """Samples with a syndrome failure in either sector."""
     return int(counters[C_TESTED] - counters[C_CORRECTED] - counters[C_LOGICAL])
+
+
+def check_repaired_lanes(graphs: CodeGraphs, sx, sz, p_err: float, seed: int,
+                         cfg: BPConfig, retries: int, device) -> int:
+    """Every lane the relay repairs in chunk 0 satisfies its syndrome;
+    returns the number of repaired lanes."""
+    primary = decode_batch(graphs, sx, sz, p_err, cfg)
+    res, rx, rz = relay_decode_batch(graphs, sx, sz, p_err,
+                                     relay_generator(seed, 0, device), cfg,
+                                     retries=retries)
+    repaired = 0
+    for bit, graph, syn, dec in ((1, graphs.x, sx, res.decisions_x),
+                                 (2, graphs.z, sz, res.decisions_z)):
+        fixed_lanes = ((primary.error_code & bit) != 0) & ((res.error_code & bit) == 0)
+        sat = (graph.syndrome(dec.to(torch.int32)) == syn).all(dim=0)
+        repaired += int(fixed_lanes.sum())
+        check(bool(sat[fixed_lanes].all()), "a repaired lane violates its syndrome")
+    say("relay", chunk=0, repaired_lanes=repaired, retries_x=rx, retries_z=rz)
+    return repaired
 
 
 def main() -> int:
@@ -354,7 +485,7 @@ def main() -> int:
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
         logs = list(pool.map(lambda lib: build.build(*lib), LIBRARIES))
-    for lib in (bp_cuda, min_sum_cuda, layered_cuda):
+    for lib in KERNEL_MODULES:
         lib._library()
     say("build", seconds=f"{time.perf_counter() - t0:.2f}", arch="sm_90a",
         libraries=len(LIBRARIES))
@@ -365,7 +496,7 @@ def main() -> int:
                 print("  ptxas:", line.strip(), flush=True)
 
     # 3. K1 vs plain on the card ----------------------------------------------
-    g610 = CodeGraphs.build(construct_code(4, 5, 10, 61, 9, 49))
+    g610 = CodeGraphs.build(construct_code(*HEADLINE_CODE))
     g42 = CodeGraphs.build(construct_code(3, 3, 6, 7, 2, 3))
     prior = np.float32(BPConfig().prior_factor) * np.float32(P_ERR)
     s610 = syndromes(g610, WEIGHT, 7, device)
@@ -495,13 +626,7 @@ def main() -> int:
     check(syncs <= 2, f"probe: {syncs} host syncs in 2 groups")
     launches["min_sum_wide"] = check_launches("probe", counts, "min_sum_wide",
                                               PROBE_CHUNKS)
-    z = two_proportion_z(int(counters[C_CORRECTED]), int(counters[C_TESTED]),
-                         *PROBE_CORRECTED)
-    say("gate", path=f"min-sum P={PROBE_P}",
-        corrected_fraction=f"{counters[C_CORRECTED] / counters[C_TESTED]:.6f}",
-        reference=f"{PROBE_CORRECTED[0] / PROBE_CORRECTED[1]:.6f}",
-        z=f"{z:+.2f}")
-    check(abs(z) < 4, f"probe corrected fraction off the JAX package's (z={z})")
+    gate_two_proportion(f"min-sum P={PROBE_P}", counters, PROBE_CORRECTED)
 
     # 9. relay ------------------------------------------------------------------
     relay_cfg = BPConfig(max_iters=MAX_ITERS, algorithm="min-sum")
@@ -524,39 +649,141 @@ def main() -> int:
     check(abs(z_repair) < 4, f"relay: repair rate off (z={z_repair})")
     check(counts["min_sum"] >= 2 * RELAY_CHUNKS, "relay launched no retries")
     # every repaired lane of one chunk satisfies its syndrome
-    xe, ze = sample_weight_w_errors(chunk_generator(4, 0, device),
-                                    g610.code.n, RELAY_WEIGHT, BATCH)
-    sx = g610.x.syndrome(xe.to(torch.int32))
-    sz = g610.z.syndrome(ze.to(torch.int32))
-    primary = decode_batch(g610, sx, sz, RELAY_P, relay_cfg)
-    res, rx, rz = relay_decode_batch(g610, sx, sz, RELAY_P,
-                                     relay_generator(4, 0, device), relay_cfg,
-                                     retries=RELAY_RETRIES)
-    repaired = 0
-    for bit, graph, syn, dec in ((1, g610.x, sx, res.decisions_x),
-                                 (2, g610.z, sz, res.decisions_z)):
-        fixed_lanes = ((primary.error_code & bit) != 0) & ((res.error_code & bit) == 0)
-        sat = (graph.syndrome(dec.to(torch.int32)) == syn).all(dim=0)
-        repaired += int(fixed_lanes.sum())
-        check(bool(sat[fixed_lanes].all()), "a repaired lane violates its syndrome")
-    say("relay", chunk=0, repaired_lanes=repaired, retries_x=rx, retries_z=rz)
+    sx, sz = syndromes(g610, RELAY_WEIGHT, 4, device)
+    check_repaired_lanes(g610, sx, sz, RELAY_P, 4, relay_cfg, RELAY_RETRIES,
+                         device)
+
+    # 10. K5 and K6 vs plain on lifted graphs -----------------------------------
+    gross = known_bicycle_code(GROSS).build_graphs()
+    s_gross = syndromes(gross, 0, 12, device, p_err=0.03)
+    gamma = torch.rand((gross.x.num_vars, BATCH), generator=gen, device=device)
+    damping_gross = gross.x.expand_vars(gamma * 0.95 + 0.05).contiguous()
+    toric = toric_code(32).build_graphs()
+    check(toric.x.P >= min_sum_cuda.WIDE_MIN_P, "toric d=32 below WIDE_MIN_P")
+    s_toric = syndromes(toric, 0, 13, device, p_err=0.05)
+    bb756 = known_bicycle_code("[[756,16,34]]").build_graphs()
+    s_756 = syndromes(bb756, 0, 14, device, p_err=0.03)
+    fixed20 = BPConfig(max_iters=20, check_every=21)
+    ms_fixed20 = BPConfig(max_iters=20, check_every=21, algorithm="min-sum")
+    lifted_cases = {"lifted_min_sum": [], "lifted_bp": []}
+    for name, (c_early, c_fixed, c20), arg in (
+            ("lifted_min_sum", (ms_early, ms_fixed, ms_fixed20), llr),
+            ("lifted_bp", (early, fixed, fixed20), prior)):
+        for mode, c in (("early_exit", c_early), ("fixed", c_fixed)):
+            lifted_cases[name] += [
+                (GROSS, "X", mode, gross.x, s_gross[0], arg, c),
+                (GROSS, "Z", mode, gross.z, s_gross[1], arg, c)]
+        lifted_cases[name] += [
+            ("toric d=32", "X", "fixed", toric.x, s_toric[0], arg, c20),
+            ("toric d=32", "Z", "fixed", toric.z, s_toric[1], arg, c20),
+            ("[[756,16,34]]", "X", "fixed", bb756.x, s_756[0], arg, c20)]
+    lifted_cases["lifted_min_sum"].append(
+        (GROSS, "X", "damped_early_exit", gross.x, s_gross[0], llr, ms_early,
+         damping_gross))
+    before = read_counts()
+    worst["lifted_min_sum"] = run_checks(
+        "lifted_min_sum", lifted_cases["lifted_min_sum"], compare_min_sum)
+    worst["lifted_bp"] = run_checks("lifted_bp", lifted_cases["lifted_bp"],
+                                    compare_bp)
+    after = read_counts()
+    check({k: after[k] - before[k] for k in after} == {
+        **{k: 0 for k in after},
+        "lifted_min_sum": len(lifted_cases["lifted_min_sum"]),
+        "lifted_bp": len(lifted_cases["lifted_bp"])},
+        f"lifted checks launched {after} after {before}: a lifted graph "
+        f"took another route (the wide one included)")
+
+    # 11. K5 and K6 time vs plain (fixed work, gross X, batch 2048) ---------------
+    times["lifted_min_sum"] = time_pair(
+        "lifted_min_sum",
+        lambda: min_sum_cuda.min_sum_run(gross.x, s_gross[0], llr, MAX_ITERS,
+                                         MAX_ITERS + 1),
+        lambda: min_sum.min_sum_run(gross.x, s_gross[0], llr, MAX_ITERS,
+                                    MAX_ITERS + 1),
+        50, 3, graph=f"{GROSS} X", iters=MAX_ITERS)
+    times["lifted_bp"] = time_pair(
+        "lifted_bp",
+        lambda: bp_cuda.bp_run(gross.x, s_gross[0], prior, MAX_ITERS,
+                               MAX_ITERS + 1),
+        lambda: sum_product.bp_run(gross.x, s_gross[0], prior_t, MAX_ITERS,
+                                   MAX_ITERS + 1),
+        50, 3, graph=f"{GROSS} X", iters=MAX_ITERS)
+
+    # 12. the lifted main paths: bench.py's bicycle_gross workload ---------------
+    logical_gross = make_rank_basis_test(gross.code, device)
+    for label, c, kernel, reference in (
+            ("min-sum gross", BPConfig(max_iters=MAX_ITERS, check_every=10,
+                                       algorithm="min-sum"),
+             "lifted_min_sum", GROSS_MIN_SUM_CORRECTED),
+            ("sum-product gross", BPConfig(max_iters=MAX_ITERS, check_every=10),
+             "lifted_bp", GROSS_SUM_PRODUCT_CORRECTED)):
+        counters, _, _, counts, syncs = monte_carlo(
+            label, gross, 0, GROSS_P, c, CHUNKS, 5, logical_gross, device,
+            error_model="depolarizing")
+        check(syncs <= 2, f"{label}: {syncs} host syncs in 2 groups")
+        launches[kernel] = check_launches(label, counts, kernel, CHUNKS)
+        gate_two_proportion(label, counters, reference)
+
+    # 13. relay on the gross code --------------------------------------------------
+    relay_gross = f"relay gross p={GROSS_RELAY_P} retries={GROSS_RELAY_RETRIES}"
+    base, *_ = monte_carlo(f"min-sum gross p={GROSS_RELAY_P}", gross, 0,
+                           GROSS_RELAY_P, relay_cfg, GROSS_RELAY_CHUNKS, 6,
+                           logical_gross, device, steps_per_call=2,
+                           error_model="depolarizing")
+    counters, _, _, counts, syncs = monte_carlo(
+        relay_gross, gross, 0, GROSS_RELAY_P, relay_cfg, GROSS_RELAY_CHUNKS, 6,
+        logical_gross, device, relay_retries=GROSS_RELAY_RETRIES,
+        steps_per_call=2, error_model="depolarizing")
+    fail0, fail1 = bp_failures(base), bp_failures(counters)
+    say("relay", code=GROSS, samples=int(counters[C_TESTED]),
+        bp_failures=fail0, unrepaired=fail1,
+        repair_rate=f"{1 - fail1 / max(fail0, 1):.4f}",
+        corrected_fraction=f"{counters[C_CORRECTED] / counters[C_TESTED]:.6f}",
+        warmup_host_syncs=syncs, lifted_min_sum_launches=counts["lifted_min_sum"])
+    check(counts["lifted_min_sum"] > 2 * GROSS_RELAY_CHUNKS,
+          "gross relay launched no damped K5 retries")
+    check(counts["min_sum"] == counts["min_sum_wide"] == 0,
+          "gross relay took a circulant route")
+    sx, sz = syndromes(gross, 0, 6, device, p_err=GROSS_RELAY_P)
+    check_repaired_lanes(gross, sx, sz, GROSS_RELAY_P, 6, relay_cfg,
+                         GROSS_RELAY_RETRIES, device)
     check("jax" not in sys.modules, "the port imported jax")
 
     print(smi, flush=True)
-    sources = {"bp_sum_product": ("bp_sum_product.cu", "bp_pallas.py:386"),
-               "min_sum": ("min_sum.cu", "min_sum_pallas.py:310"),
-               "min_sum_wide": ("min_sum.cu", "min_sum_wide_pallas.py:291"),
-               "layered_min_sum": ("layered_min_sum.cu", "layered_pallas.py:232")}
-    print(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": f"qec_ldpc_tpu_torch/csrc/{src}",
-        "replaces": f"qec_ldpc_tpu/kernels/{tpu}",
-        "launches": launches[name],
-        "max_abs_err": worst[name],
-        "ms": times[name][0],
-        "plain_ms": times[name][1],
-    } for name, (src, tpu) in sources.items()]}), flush=True)
+    # name -> (source, TPU kernel, timed graph, iterations, algorithm, output
+    # rows): the shapes of phases 4, 7 and 11
+    kernels = {
+        "bp_sum_product": ("bp_sum_product.cu", "bp_pallas.py:386", g610.x,
+                           MAX_ITERS, "sum-product", None),
+        "min_sum": ("min_sum.cu", "min_sum_pallas.py:310", g610.x, MAX_ITERS,
+                    "min-sum", None),
+        "min_sum_wide": ("min_sum.cu", "min_sum_wide_pallas.py:291", probe.x,
+                         20, "min-sum", None),
+        "layered_min_sum": ("layered_min_sum.cu", "layered_pallas.py:232",
+                            g610.x, MAX_ITERS, "layered", g610.x.num_vars),
+        "lifted_min_sum": ("lifted_min_sum.cu", "lifted_min_sum_pallas.py:272",
+                           gross.x, MAX_ITERS, "min-sum", None),
+        "lifted_bp": ("lifted_bp.cu", "lifted_bp_pallas.py:232", gross.x,
+                      MAX_ITERS, "sum-product", None),
+    }
+    rows = []
+    for name, (src, tpu, graph, iters, algorithm, out_rows) in kernels.items():
+        bound_ms, bound_by = bound(graph, BATCH, iters, algorithm, out_rows)
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"qec_ldpc_tpu_torch/csrc/{src}",
+            "replaces": f"qec_ldpc_tpu/kernels/{tpu}",
+            "launches": launches[name],
+            "max_abs_err": worst[name],
+            "ms": times[name][0],
+            "plain_ms": times[name][1],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # no single PyTorch call computes BP decoding
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

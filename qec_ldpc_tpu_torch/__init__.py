@@ -5,12 +5,13 @@ codes, written for an NVIDIA GPU: plain PyTorch functions on tensors with an
 explicit device, explicit ``torch.Generator``s, and hand-written Hopper CUDA
 kernels where the JAX package has Pallas TPU kernels.  The JAX package stays
 beside it as the reference the port is held against; this package never
-imports ``jax``.
+imports ``jax`` or anything of ``qec_ldpc_tpu``.
 
 Layers (mirroring ``qec_ldpc_tpu``):
-  codes/     the JAX package's NumPy-only code layer, re-exported
-  decoder/   circulant layout, plain sum-product, min-sum and layered
-             min-sum, X/Z decode + decisions, relay retries
+  codes/     the port's copy of the NumPy-only code layer (QC-CSS, bivariate
+             bicycle, hypergraph-product and toric codes)
+  decoder/   circulant and lifted layouts, plain sum-product, min-sum and
+             layered min-sum, X/Z decode + decisions, relay retries
   kernels/   hand-written CUDA kernels (csrc/) with their ctypes wrappers
   sampling/  Pauli error sampling and outcome classification
   parallel/  single-device Monte-Carlo loop (relay mode included)

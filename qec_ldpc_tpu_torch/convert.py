@@ -1,10 +1,11 @@
 """Carry the JAX package's decode-time objects across to the port.
 
-For this system the "parameters" are the exponent tables of the circulant
-graphs, the logical-test basis, the decode config, the prior LLR and the
-relay decoder's damping draws.  These functions
-rebuild them as the port's objects, so that tests feed both packages the
-same structure.  They read the JAX objects' fields only and import no JAX.
+For this system the "parameters" are the codes, the edge structure of their
+circulant and lifted graphs, the logical-test basis, the decode config, the
+prior LLR and the relay decoder's damping draws.  These functions rebuild
+them as the port's objects, so that tests feed both packages the same
+structure.  They read the JAX objects' fields only and import nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -14,21 +15,49 @@ import dataclasses
 import numpy as np
 import torch
 
+from qec_ldpc_tpu_torch.codes import (
+    BicycleCode,
+    HypergraphProductCode,
+    QuantumLDPCCode,
+)
 from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
+from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig
 from qec_ldpc_tpu_torch.sampling.classify import RankBasisTest
 
 
-def graph_from_jax(graph) -> CirculantGraph:
-    """A ``qec_ldpc_tpu`` CirculantGraph -> the port's."""
-    return CirculantGraph.from_table(np.asarray(graph.table), graph.P)
+CODE_TYPES = {cls.__name__: cls
+              for cls in (QuantumLDPCCode, BicycleCode, HypergraphProductCode)}
+
+
+def graph_from_jax(graph) -> CirculantGraph | LiftedGraph:
+    """A ``qec_ldpc_tpu`` CirculantGraph or LiftedGraph -> the port's.  A
+    lifted graph is rebuilt from its check-major edge blocks, so the port's
+    stable sort keeps their order and the rank tables agree."""
+    if hasattr(graph, "table"):
+        return CirculantGraph.from_table(np.asarray(graph.table), graph.P)
+    edges = list(zip(graph.check_blocks, graph.var_blocks, graph.shifts))
+    return LiftedGraph.build(graph.num_check_blocks, graph.num_var_blocks,
+                             tuple(graph.group), edges)
+
+
+def code_from_jax(code):
+    """A ``qec_ldpc_tpu`` QuantumLDPCCode, BicycleCode or
+    HypergraphProductCode -> the port's, rebuilt from its dataclass fields
+    (arrays copied; cached matrices are derived again on use)."""
+    cls = CODE_TYPES.get(type(code).__name__)
+    if cls is None:
+        raise TypeError(f"no port of code type {type(code).__name__}")
+    fields = {f.name: getattr(code, f.name) for f in dataclasses.fields(code)}
+    return cls(**{k: np.array(v) if isinstance(v, np.ndarray) else v
+                  for k, v in fields.items()})
 
 
 def graphs_from_jax(graphs) -> CodeGraphs:
-    """A ``qec_ldpc_tpu`` CodeGraphs -> the port's (the code is shared)."""
-    return CodeGraphs(code=graphs.code, x=graph_from_jax(graphs.x),
-                      z=graph_from_jax(graphs.z))
+    """A ``qec_ldpc_tpu`` CodeGraphs -> the port's, code included."""
+    return CodeGraphs(code=code_from_jax(graphs.code),
+                      x=graph_from_jax(graphs.x), z=graph_from_jax(graphs.z))
 
 
 def rank_basis_test_from_numpy(test, device: torch.device | str) -> RankBasisTest:

@@ -1,0 +1,85 @@
+// The lifted-graph description read by both lifted kernels
+// (csrc/lifted_min_sum.cu and csrc/lifted_bp.cu): their compile-time limits,
+// the by-value graph, its validation on the host and the variable-side
+// routing.  kernels/launch.py::lifted_description builds the host tables.
+//
+// Messages are (E*P, batch) float32 with the batch trailing, edge blocks in
+// check-major order (check row c owns blocks c*Dc .. c*Dc+Dc-1), each
+// block's rows check-indexed: row e*P + r is check lane r of block e.  Block
+// e with shift (a, b) joins check lane (r1, r2) to var lane
+// ((r1 + a) % l, (r2 + b) % m), lanes flattened row-major (r1*m + r2); a
+// 1-D group Z_P is (P, 1).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxEdgeBlocks = 64;
+constexpr int kMaxDc = 16;     // check degree (edge blocks per check row)
+constexpr int kMaxDv = 8;      // variable degree (edge blocks per var column)
+constexpr int kTile = 16;      // batch lanes per block
+constexpr int kThreads = 512;  // kThreads / kTile row groups per block
+
+struct Lifted {
+  int l, m, P;                   // lift group Z_l x Z_m, P = l*m
+  int C, V, Dc, Dv;              // check and var blocks, degrees
+  int shift_a[kMaxEdgeBlocks];   // per edge block, in [0, l)
+  int shift_b[kMaxEdgeBlocks];   // per edge block, in [0, m)
+  int rank_edge[kMaxEdgeBlocks]; // (Dv, V): var block v's rank-i edge block
+};
+
+// Fill `g` from the HOST tables `edges` (E, 4) = (check block, var block, a,
+// b) per edge block in check-major order with (a, b) in [0, l) x [0, m), and
+// `ranks` (Dv, V) edge ids.  False for a graph outside the limits or not in
+// check-major rank form, and for launch arguments no kernel takes.
+inline bool describe_lifted(Lifted* g, const int32_t* edges,
+                            const int32_t* ranks, int l, int m, int C, int V,
+                            int Dc, int Dv, int E, int batch, int max_iters,
+                            int check_every) {
+  if (l < 1 || m < 1 || C < 1 || V < 1 || Dc < 1 || Dc > kMaxDc || Dv < 1 ||
+      Dv > kMaxDv || E != C * Dc || E != V * Dv || E > kMaxEdgeBlocks ||
+      batch < 1 || max_iters < 0 || check_every < 1) {
+    return false;
+  }
+  g->l = l;
+  g->m = m;
+  g->P = l * m;
+  g->C = C;
+  g->V = V;
+  g->Dc = Dc;
+  g->Dv = Dv;
+  for (int i = 0; i < kMaxEdgeBlocks; ++i) {
+    g->shift_a[i] = g->shift_b[i] = g->rank_edge[i] = 0;
+  }
+  for (int eb = 0; eb < E; ++eb) {
+    const int32_t* row = edges + 4 * eb;
+    if (row[0] != eb / Dc || row[1] < 0 || row[1] >= V || row[2] < 0 ||
+        row[2] >= l || row[3] < 0 || row[3] >= m) {
+      return false;
+    }
+    g->shift_a[eb] = row[2];
+    g->shift_b[eb] = row[3];
+  }
+  for (int i = 0; i < E; ++i) {
+    const int eb = ranks[i];
+    if (eb < 0 || eb >= E || edges[4 * eb + 1] != i % V) return false;
+    g->rank_edge[i] = eb;
+  }
+  return true;
+}
+
+// The message row of var lane (q1, q2)'s edge in block `eb`: the check lane
+// ((q1 - a) mod l, (q2 - b) mod m) of that block.
+__device__ __forceinline__ int var_edge_row(const Lifted& g, int eb, int q1,
+                                            int q2) {
+  int r1 = q1 - g.shift_a[eb];
+  if (r1 < 0) r1 += g.l;
+  int r2 = q2 - g.shift_b[eb];
+  if (r2 < 0) r2 += g.m;
+  return eb * g.P + r1 * g.m + r2;
+}
+
+}  // namespace

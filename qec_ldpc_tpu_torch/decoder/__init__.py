@@ -1,7 +1,9 @@
-"""Batched BP decoding over circulant Tanner graphs (PyTorch): sum-product,
-min-sum, layered min-sum and the relay decoder."""
+"""Batched BP decoding over circulant and lifted Tanner graphs (PyTorch):
+sum-product, min-sum, layered min-sum (circulant only) and the relay
+decoder."""
 
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
+from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig, bp_run
 from qec_ldpc_tpu_torch.decoder.min_sum import min_sum_run, prior_llr
 from qec_ldpc_tpu_torch.decoder.layered import layered_min_sum_run
@@ -19,8 +21,8 @@ from qec_ldpc_tpu_torch.decoder.decode import (
 from qec_ldpc_tpu_torch.decoder.relay import relay_decode_batch
 
 __all__ = [
-    "CirculantGraph", "BPConfig", "bp_run", "min_sum_run", "prior_llr",
-    "layered_min_sum_run", "relay_decode_batch", "CodeGraphs", "DecodeResult",
+    "CirculantGraph", "LiftedGraph", "BPConfig", "bp_run", "min_sum_run",
+    "prior_llr", "layered_min_sum_run", "relay_decode_batch", "CodeGraphs", "DecodeResult",
     "decode_batch", "syndromes_from_errors", "SUCCESS", "SYNDROME_FAIL_X",
     "SYNDROME_FAIL_Z", "CONVERGENCE_FAIL_X", "CONVERGENCE_FAIL_Z",
 ]

@@ -1,19 +1,21 @@
 """Full X/Z decode with hard decision and error-code flags (PyTorch).
 
-The port of ``qec_ldpc_tpu/decoder/decode.py`` for circulant graphs: decode
-the X and Z syndromes with ``cfg.algorithm``, hard-decide each variable,
-flag per-lane convergence failures, and flag syndrome failures by
+The port of ``qec_ldpc_tpu/decoder/decode.py`` for circulant graphs and
+lifted graphs (bivariate bicycle, hypergraph-product and toric codes):
+decode the X and Z syndromes with ``cfg.algorithm``, hard-decide each
+variable, flag per-lane convergence failures, and flag syndrome failures by
 re-encoding the decision.  Per algorithm:
 
   * ``"sum-product"``: flipped if ANY incident message is >= 0.5 (the
     reference's any-edge rule); convergence failures from a final band test.
-    Runs through ``kernels/bp_cuda.bp_run``.
+    Runs through ``kernels/bp_cuda.bp_run`` (K1, or K6 on a lifted graph).
   * ``"min-sum"``: the LLR image, flipped if any incident LLR is <= 0;
     convergence failures from the LLR band test.  Runs through
-    ``kernels/min_sum_cuda.min_sum_run``.
+    ``kernels/min_sum_cuda.min_sum_run`` (K2/K4, or K5 on a lifted graph).
   * ``"layered-min-sum"``: flipped where the posterior LLR is <= 0; a
     convergence failure IS a syndrome failure.  Runs through
-    ``kernels/layered_cuda.layered_run``.
+    ``kernels/layered_cuda.layered_run``; circulant graphs only (the block
+    rows of a lifted graph are not variable-disjoint layers).
 
 Each wrapper runs its CUDA kernel for CUDA tensors and its plain PyTorch
 version for CPU tensors.
@@ -28,6 +30,7 @@ import torch
 
 from qec_ldpc_tpu_torch.codes import QuantumLDPCCode
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
+from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
 from qec_ldpc_tpu_torch.decoder.min_sum import (
     _not_converged_mask_llr,
     np_log_band,
@@ -48,11 +51,13 @@ CONVERGENCE_FAIL_Z = 8
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class CodeGraphs:
-    """Static decode-time structure for one code: the X and Z circulant graphs."""
+    """Static decode-time structure for one code: the X and Z graphs, both
+    circulant (``build``) or both lifted (``BicycleCode.build_graphs``,
+    ``HypergraphProductCode.build_graphs``)."""
 
-    code: QuantumLDPCCode
-    x: CirculantGraph
-    z: CirculantGraph
+    code: QuantumLDPCCode  # or BicycleCode / HypergraphProductCode
+    x: CirculantGraph | LiftedGraph
+    z: CirculantGraph | LiftedGraph
 
     @staticmethod
     def build(code: QuantumLDPCCode) -> "CodeGraphs":
@@ -77,8 +82,8 @@ class DecodeResult:
     iter_samples_z: torch.Tensor
 
 
-def decide(graph: CirculantGraph, v: torch.Tensor, syndrome: torch.Tensor,
-           cfg: BPConfig):
+def decide(graph: CirculantGraph | LiftedGraph, v: torch.Tensor,
+           syndrome: torch.Tensor, cfg: BPConfig):
     """Decisions and failure flags from final messages ``v`` of
     ``cfg.algorithm`` ("sum-product": probabilities, "min-sum": LLRs).
 
@@ -95,16 +100,22 @@ def decide(graph: CirculantGraph, v: torch.Tensor, syndrome: torch.Tensor,
     return decisions, conv_fail, syndrome_fail(graph, decisions, syndrome)
 
 
-def syndrome_fail(graph: CirculantGraph, decisions: torch.Tensor,
+def syndrome_fail(graph: CirculantGraph | LiftedGraph,
+                  decisions: torch.Tensor,
                   syndrome: torch.Tensor) -> torch.Tensor:
     """Per lane: the re-encoded decision differs from the syndrome."""
     return (graph.syndrome(decisions.to(torch.int32)) != syndrome).any(dim=0)
 
 
-def _decode_one_graph(graph: CirculantGraph, syndrome: torch.Tensor,
-                      prior: np.float32, cfg: BPConfig):
+def _decode_one_graph(graph: CirculantGraph | LiftedGraph,
+                      syndrome: torch.Tensor, prior: np.float32, cfg: BPConfig):
     """One graph: ``(decisions, conv_fail, syn_fail, lane_iters)``, with
     ``lane_iters`` (batch,) each lane's executed iterations."""
+    if cfg.algorithm == "layered-min-sum" and isinstance(graph, LiftedGraph):
+        raise ValueError(
+            "layered-min-sum requires a CirculantGraph (block-row layers of "
+            "a lifted graph are not variable-disjoint); use algorithm="
+            "'min-sum' for lifted codes")
     if cfg.algorithm == "layered-min-sum":
         q, lane_iters = layered_cuda.layered_run(
             graph, syndrome, prior_llr(prior), cfg.max_iters,

@@ -1,7 +1,10 @@
-"""Batched normalized min-sum BP over a circulant Tanner graph (PyTorch).
+"""Batched normalized min-sum BP over a circulant or lifted Tanner graph
+(PyTorch).
 
 The plain PyTorch version of ``qec_ldpc_tpu/decoder/min_sum.py``, and the
-reference the CUDA kernel (kernels/min_sum_cuda.py) is held against.  LLR
+reference the CUDA kernels (kernels/min_sum_cuda.py on a ``CirculantGraph``,
+kernels/lifted_min_sum_cuda.py on a ``LiftedGraph``) are held against; it
+reads the graph only through its duck-typed views.  LLR
 convention ``llr = log(P(no error) / P(error))``, so ``p >= 0.5 <=> llr <= 0``:
 
   * check-node rule  E = syndrome_sign * (alpha * prod(sign V_l') * min |V_l'|)
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
+from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
 from qec_ldpc_tpu_torch.decoder.sum_product import fma_f32
 
 
@@ -99,7 +103,7 @@ def _sign(t: torch.Tensor) -> torch.Tensor:
     return torch.where(t < 0, -1.0, 1.0).to(t.dtype)
 
 
-def cn_update_min_sum(graph: CirculantGraph, v: torch.Tensor,
+def cn_update_min_sum(graph: CirculantGraph | LiftedGraph, v: torch.Tensor,
                       syndrome_sign: torch.Tensor, alpha: float) -> torch.Tensor:
     """Normalized min-sum check-node update; v, result check-indexed
     (num_edges, batch) LLRs.  ``syndrome_sign``: per-edge +-1 rows."""
@@ -114,8 +118,8 @@ def cn_update_min_sum(graph: CirculantGraph, v: torch.Tensor,
     return syndrome_sign * e.reshape(v.shape)
 
 
-def vn_update_llr(graph: CirculantGraph, e: torch.Tensor, prior_llr: float,
-                  last: bool) -> torch.Tensor:
+def vn_update_llr(graph: CirculantGraph | LiftedGraph, e: torch.Tensor,
+                  prior_llr: float, last: bool) -> torch.Tensor:
     """LLR variable-node update: leave-one-out sums plus the prior LLR; the
     last iteration forms full posteriors."""
     ev = graph.vn_view(graph.to_var(e))        # (B, L*P, batch) var-indexed
@@ -145,7 +149,7 @@ def damped_blend(damping: torch.Tensor, v_old: torch.Tensor,
 
 
 def min_sum_run(
-    graph: CirculantGraph,
+    graph: CirculantGraph | LiftedGraph,
     syndrome: torch.Tensor,          # (num_checks, batch) in {0, 1}
     prior_llr: float,                # float32 channel prior LLR (prior_llr())
     max_iters: int,

@@ -9,7 +9,8 @@ The disorder breaks the trapping-set symmetries that pin flooding BP; a lane
 is repaired as soon as a retry's hard decision satisfies its syndrome, which
 an exact re-encode checks.  Retries run through
 ``kernels/min_sum_cuda.min_sum_run`` with its damping operand: the CUDA
-kernel on a CUDA tensor, the plain version on a CPU tensor.
+kernel on a CUDA tensor (K2, or K5 on the lifted graphs of bivariate
+bicycle and hypergraph-product codes), the plain version on a CPU tensor.
 
 Solved lanes get a zero syndrome, so they converge at the first convergence
 check and cost one check window.  The JAX version loops under
@@ -37,6 +38,7 @@ from qec_ldpc_tpu_torch.decoder.decode import (
     syndrome_fail,
 )
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
+from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
 from qec_ldpc_tpu_torch.decoder.min_sum import prior_llr
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig
 from qec_ldpc_tpu_torch.kernels import min_sum_cuda
@@ -58,7 +60,8 @@ def uniform_gammas(generator: torch.Generator, num_vars: int, batch: int,
     return draw
 
 
-def _relay_one_graph(graph: CirculantGraph, syndrome: torch.Tensor,
+def _relay_one_graph(graph: CirculantGraph | LiftedGraph,
+                     syndrome: torch.Tensor,
                      llr: float, cfg: BPConfig,
                      gammas: Callable[[int], torch.Tensor],
                      decisions0: torch.Tensor, solved0: torch.Tensor,

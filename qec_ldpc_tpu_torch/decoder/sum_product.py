@@ -1,7 +1,10 @@
-"""Batched probability-domain sum-product BP over a circulant Tanner graph.
+"""Batched probability-domain sum-product BP over a circulant or lifted
+Tanner graph.
 
 The plain PyTorch version of ``qec_ldpc_tpu/decoder/sum_product.py``, and
-the reference the CUDA kernel (kernels/bp_cuda.py) is held against:
+the reference the CUDA kernels (kernels/bp_cuda.py on a ``CirculantGraph``,
+kernels/lifted_bp_cuda.py on a ``LiftedGraph``) are held against.  It
+reads the graph only through its duck-typed views, so it runs on both:
 
   * check-node rule  E = 0.5 - (0.5 - s) * prod_{l' != l} (1 - 2 v)
   * var-node rule    p*prod(e) / ((1-p)*prod(1-e) + p*prod(e)), leaving out
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
+from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,9 +37,10 @@ class BPConfig:
     """Decode-loop knobs: the same fields and defaults as the JAX
     ``BPConfig`` so configs carry across unchanged.  The port runs every
     ``algorithm`` of the JAX package ("sum-product", "min-sum",
-    "layered-min-sum") on circulant graphs; the ``kernel*`` fields select
-    TPU kernels and are kept only so the two configs compare equal — on a
-    CUDA tensor the decode always runs the algorithm's CUDA kernel."""
+    "layered-min-sum", the last on circulant graphs only); the ``kernel*``
+    fields select TPU kernels and are kept only so the two configs compare
+    equal — on a CUDA tensor the decode always runs the algorithm's CUDA
+    kernel."""
 
     max_iters: int = 100
     check_every: int = 10
@@ -100,7 +105,7 @@ def _not_converged_mask(v: torch.Tensor, low: float, high: float) -> torch.Tenso
     return inside.any(dim=0)
 
 
-def cn_update(graph: CirculantGraph, v: torch.Tensor,
+def cn_update(graph: CirculantGraph | LiftedGraph, v: torch.Tensor,
               syndrome_sign_half: torch.Tensor) -> torch.Tensor:
     """Check-node update.  v, result: check-indexed (num_edges, batch);
     ``syndrome_sign_half`` = 0.5 - syndrome per edge row (+-0.5)."""
@@ -110,8 +115,8 @@ def cn_update(graph: CirculantGraph, v: torch.Tensor,
     return 0.5 - syndrome_sign_half * prod
 
 
-def vn_update(graph: CirculantGraph, e: torch.Tensor, prior: torch.Tensor,
-              last: bool) -> torch.Tensor:
+def vn_update(graph: CirculantGraph | LiftedGraph, e: torch.Tensor,
+              prior: torch.Tensor, last: bool) -> torch.Tensor:
     """Variable-node update.  e: check-indexed; returns check-indexed v.
     ``last`` includes the own-check message, forming the posterior."""
     ev = graph.vn_view(graph.to_var(e))                 # (B, L*P, batch)
@@ -134,7 +139,7 @@ def vn_update(graph: CirculantGraph, e: torch.Tensor, prior: torch.Tensor,
 
 
 def bp_run(
-    graph: CirculantGraph,
+    graph: CirculantGraph | LiftedGraph,
     syndrome: torch.Tensor,          # (num_checks, batch) in {0, 1}
     prior: torch.Tensor | float,     # channel prior (already 2/3-scaled)
     max_iters: int,

@@ -5,7 +5,8 @@ BP loop of one circulant graph in one launch.  :func:`bp_run` checks its
 arguments, allocates the outputs, and launches the kernel on the current
 CUDA stream for a CUDA tensor; for a CPU tensor it runs the plain version,
 ``decoder/sum_product.bp_run``.  There is no fallback: a CUDA tensor either
-runs the kernel or raises.
+runs the kernel or raises.  A ``LiftedGraph`` goes to
+``lifted_bp_cuda.lifted_bp_run`` (K6's kernel), as the JAX dispatch does.
 
 ``launches`` counts kernel launches (never the plain path), so a run can
 show that its decodes went through the kernel.
@@ -21,7 +22,8 @@ import torch
 
 from qec_ldpc_tpu_torch.decoder import sum_product
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
-from qec_ldpc_tpu_torch.kernels import build, launch
+from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
+from qec_ldpc_tpu_torch.kernels import build, launch, lifted_bp_cuda
 
 #: the kernel's compile-time degree limits (kMaxB / kMaxL in the source)
 MAX_VAR_DEGREE = 8
@@ -50,7 +52,7 @@ def _library() -> ctypes.CDLL:
 
 
 def bp_run(
-    graph: CirculantGraph,
+    graph: CirculantGraph | LiftedGraph,
     syndrome: torch.Tensor,   # (num_checks, batch) int32 in {0, 1}
     prior: float,             # channel prior (already 2/3-scaled), float32
     max_iters: int,
@@ -63,9 +65,14 @@ def bp_run(
     Per lane, ``v_final`` equals the plain ``sum_product.bp_run`` bit for
     bit.  ``iters`` is each lane's executed iteration count: the kernel
     early-exits per tile of lanes, so a lane counts its tile's iterations;
-    the maximum over lanes is the plain loop's count."""
+    the maximum over lanes is the plain loop's count.  Lifted graphs go to
+    ``lifted_bp_cuda.lifted_bp_run``."""
     global launches
-    launch.check_run_args(graph, syndrome, max_iters, check_every)
+    if isinstance(graph, LiftedGraph):
+        return lifted_bp_cuda.lifted_bp_run(graph, syndrome, prior, max_iters,
+                                            check_every, conv_low, conv_high)
+    launch.check_run_args(graph, syndrome, max_iters, check_every,
+                          CirculantGraph)
     prior32 = np.float32(prior)
     batch = syndrome.shape[1]
     if syndrome.device.type == "cpu":

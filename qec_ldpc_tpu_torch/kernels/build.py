@@ -3,8 +3,9 @@
 Each library is compiled by ``nvcc`` at first use, for Hopper (``sm_90a``),
 into ``qec_ldpc_tpu_torch/_build/`` (listed in ``.gitignore``), with a plain
 C interface that :mod:`ctypes` loads — no PyTorch headers, so a build takes
-seconds.  The file name carries a hash of the sources and the flags, so an
-edit to either rebuilds and a stale library is never loaded.
+seconds.  The file name carries a hash of the sources, the headers they
+share (``csrc/*.cuh``) and the flags, so an edit to any of them rebuilds and
+a stale library is never loaded.
 
 Flags that matter for numerics: ``--fmad=false`` stops nvcc from contracting
 ``a*b + c`` into fused multiply-adds the reference does not do (the kernels
@@ -48,7 +49,8 @@ def find_nvcc() -> str:
 def library_path(name: str, sources: tuple[str, ...]) -> Path:
     """Where the library built from ``sources`` (names under csrc/) lives."""
     h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted(p.name for p in CSRC_DIR.glob("*.cuh"))
+    for src in (*sources, *headers):
         h.update(src.encode() + b"\0" + (CSRC_DIR / src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

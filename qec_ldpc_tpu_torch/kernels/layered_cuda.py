@@ -64,7 +64,10 @@ def layered_run(
     early-exits per tile of lanes, so a lane counts its tile's sweeps; the
     maximum over lanes is the plain loop's count."""
     global launches
-    launch.check_run_args(graph, syndrome, max_iters, check_every)
+    # the layered schedule needs variable-disjoint block-row layers, which
+    # lifted graphs do not have
+    launch.check_run_args(graph, syndrome, max_iters, check_every,
+                          CirculantGraph)
     batch = syndrome.shape[1]
     if syndrome.device.type == "cpu":
         q, n = layered.layered_min_sum_run(graph, syndrome, prior_llr,

@@ -13,7 +13,9 @@ The port of two TPU kernels that compute one function:
 Each wrapper checks its arguments, allocates the outputs and launches the
 kernel on the current CUDA stream for a CUDA tensor; for a CPU tensor it runs
 the plain version, ``decoder/min_sum.min_sum_run``.  There is no fallback: a
-CUDA tensor either runs the kernel or raises.  ``launches`` and
+CUDA tensor either runs the kernel or raises.  A ``LiftedGraph`` goes to
+``lifted_min_sum_cuda.lifted_min_sum_run`` (K5's kernel) before the large-P
+test, as the JAX dispatch does.  ``launches`` and
 ``wide_launches`` count each route's kernel launches (never the plain path).
 """
 
@@ -26,7 +28,8 @@ import torch
 
 from qec_ldpc_tpu_torch.decoder import min_sum
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
-from qec_ldpc_tpu_torch.kernels import build, launch
+from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
+from qec_ldpc_tpu_torch.kernels import build, launch, lifted_min_sum_cuda
 
 #: the kernel's compile-time degree limits (kMaxB / kMaxL in the source)
 MAX_VAR_DEGREE = 8
@@ -66,14 +69,7 @@ def _run(graph: CirculantGraph, syndrome: torch.Tensor, prior_llr: float,
     """Both routes, after ``launch.check_run_args``: returns
     ``(v, iters, launched)``."""
     batch = syndrome.shape[1]
-    if damping is not None:
-        if damping.dtype != torch.float32:
-            raise TypeError(f"damping must be float32, got {damping.dtype}")
-        if tuple(damping.shape) != (graph.num_edges, batch):
-            raise ValueError(f"damping shape {tuple(damping.shape)} does not "
-                             f"match ({graph.num_edges}, {batch})")
-        if damping.device != syndrome.device:
-            raise ValueError("damping and syndrome lie on different devices")
+    launch.check_damping(damping, graph.num_edges, syndrome)
     if syndrome.device.type == "cpu":
         v, n = min_sum.min_sum_run(graph, syndrome, prior_llr, max_iters,
                                    check_every, conv_low, alpha, damping)
@@ -99,7 +95,7 @@ def _run(graph: CirculantGraph, syndrome: torch.Tensor, prior_llr: float,
 
 
 def min_sum_run(
-    graph: CirculantGraph,
+    graph: CirculantGraph | LiftedGraph,
     syndrome: torch.Tensor,    # (num_checks, batch) int32 in {0, 1}
     prior_llr: float,          # float32 channel prior LLR (min_sum.prior_llr)
     max_iters: int,
@@ -113,10 +109,16 @@ def min_sum_run(
     Per lane, ``v_final`` equals the plain ``min_sum.min_sum_run`` bit for
     bit, damped or not.  ``iters`` is each lane's executed iteration count:
     the kernel early-exits per tile of lanes, so a lane counts its tile's
-    iterations; the maximum over lanes is the plain loop's count.  Graphs
-    with ``P >= WIDE_MIN_P`` go to :func:`min_sum_run_wide`."""
+    iterations; the maximum over lanes is the plain loop's count.  Lifted
+    graphs go to ``lifted_min_sum_cuda.lifted_min_sum_run``, and circulant
+    graphs with ``P >= WIDE_MIN_P`` to :func:`min_sum_run_wide`."""
     global launches
-    launch.check_run_args(graph, syndrome, max_iters, check_every)
+    if isinstance(graph, LiftedGraph):
+        return lifted_min_sum_cuda.lifted_min_sum_run(
+            graph, syndrome, prior_llr, max_iters, check_every, conv_low,
+            alpha, damping)
+    launch.check_run_args(graph, syndrome, max_iters, check_every,
+                          CirculantGraph)
     if graph.P >= WIDE_MIN_P:
         return min_sum_run_wide(graph, syndrome, prior_llr, max_iters,
                                 check_every, conv_low, alpha, damping)
@@ -139,7 +141,8 @@ def min_sum_run_wide(
     """The large-P route (the counterpart of ``min_sum_run_wide_pallas``):
     the same contract as :func:`min_sum_run`, counted in ``wide_launches``."""
     global wide_launches
-    launch.check_run_args(graph, syndrome, max_iters, check_every)
+    launch.check_run_args(graph, syndrome, max_iters, check_every,
+                          CirculantGraph)
     v, iters, launched = _run(graph, syndrome, prior_llr, max_iters,
                               check_every, conv_low, alpha, damping)
     wide_launches += launched

@@ -1,7 +1,8 @@
 """Single-device Monte-Carlo estimation of logical-error statistics (PyTorch).
 
 The port of ``qec_ldpc_tpu/parallel/montecarlo.py::run_monte_carlo`` without
-a mesh.  Each chunk runs the whole pipeline on one device:
+a mesh, for circulant and lifted codes alike.  Each chunk runs the whole
+pipeline on one device:
 
   sample errors -> syndromes -> X/Z decode [-> relay retries] -> classify
   -> counters.
@@ -63,8 +64,10 @@ def relay_generator(seed: int, chunk: int,
 
 
 def _resolve_logical_test(graphs: CodeGraphs, i_minus_p, device):
-    """None -> rank-basis test of the code (reference convention); a dense
-    matrix goes to ``device``; a RankBasisTest passes through."""
+    """None -> rank-basis test of the code (the reference convention for
+    QC-CSS codes, the physical one for bivariate bicycle and
+    hypergraph-product codes); a dense matrix goes to ``device``; a
+    RankBasisTest passes through."""
     if i_minus_p is None:
         return make_rank_basis_test(graphs.code, device)
     if isinstance(i_minus_p, RankBasisTest):

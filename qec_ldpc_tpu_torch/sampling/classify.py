@@ -61,14 +61,24 @@ def rank_basis_test(space_for_x, space_for_z,
 
 def make_rank_basis_test(code, device: torch.device | str,
                          logical_test: str = "reference") -> RankBasisTest:
-    """Rank-basis test equivalent to ``code.i_minus_p`` (``"reference"``:
-    x residual harmless iff in rowspace(pcm_x)) or to its physical variant
-    (``"physical"``: the same-Pauli-type stabilizers)."""
-    if logical_test == "reference":
-        return rank_basis_test(code.pcm_x, code.pcm_z, device)
+    """Rank-basis test equivalent to ``code.i_minus_p`` for any code
+    family the port builds.
+
+    * QC-CSS codes (codes/css.py): ``"reference"`` reproduces the shipped
+      ``iMinusP`` (x residual harmless iff in rowspace(pcm_x), the
+      detecting matrix); ``"physical"`` uses the same-Pauli-type
+      stabilizers.
+    * Bivariate bicycle and hypergraph-product codes (codes/bicycle.py,
+      codes/hypergraph.py) follow the physical convention under either
+      name: the sectors are ``hx_stab`` and ``hz_stab``.
+    """
+    if logical_test not in ("reference", "physical"):
+        raise ValueError(f"unknown logical_test {logical_test!r}")
+    if hasattr(code, "hx_stab"):  # lifted families: one convention
+        return rank_basis_test(code.hx_stab, code.hz_stab, device)
     if logical_test == "physical":
         return rank_basis_test(code.pcm_z, code.pcm_x, device)
-    raise ValueError(f"unknown logical_test {logical_test!r}")
+    return rank_basis_test(code.pcm_x, code.pcm_z, device)
 
 
 def _sector_logical(basis: torch.Tensor, pivots: torch.Tensor,
