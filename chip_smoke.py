@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives each decode path of the port through ``run_monte_carlo``, the entry
-point a user calls, and holds every CUDA kernel of those paths against its
-plain PyTorch version on the card.  The headline workload is the
+Drives each decode path of the port through ``run_monte_carlo`` and the
+quality mode through ``run_monte_carlo_osd``, the entry points a user calls,
+and holds every CUDA kernel of those paths against its plain PyTorch version
+on the card.  The headline workload is the
 reference's: the [[610,61]] code, weight-15 Pauli errors, p = 0.01, up to
 100 iterations; the lifted-graph workload is bench.py's ``bicycle_gross``
 line: the gross code [[144,12,12]], depolarizing p = 0.01.  Fails (non-zero
@@ -62,18 +63,44 @@ exit) if any phase fails:
  13. relay   the gross code at p = 0.03, min-sum with 8 relay retries, 4
              chunks: K5 must launch damped retries and every repaired lane
              must satisfy its syndrome; the repair rate is printed
+ 14. check   K7 (OSD-0) vs its plain version: s_final, used, pivcol,
+             corrections and solved flags on the [[610,61]] X and Z lanes
+             that a W=40 min-sum decode at batch 16,384 leaves failed (their
+             real soft rankings), the same plus 64 random syndromes, and the
+             failed lanes of the gross code and [[756,16,34]] at p = 0.05;
+             OSDecoder on CUDA tensors vs the host library on the same
+             lanes; the ranking (stable argsort) on the card vs the CPU's,
+             and on 24 [[610,61]] Z lanes with planted ±0.0, NaN, ±inf and
+             ties vs the CPU's and NumPy's, with K7 vs plain on them
+ 15. time    K7 vs plain on 1,024 failed-lane inputs of [[610,61]] Z and X,
+             beside its bound (the work the plain walk counts on the same
+             inputs)
+ 16. main    run_monte_carlo_osd, min-sum + device OSD-0, [[610,61]], W=40,
+             p = 0.02, 8 chunks of 16,384, after a warm-up: corrected and
+             convergence-fail counts held to the JAX package's record
+             (benchmarks/results/quality_sweep_r5.jsonl line 10) by
+             two-proportion tests (|z| < 4), 0 syndrome failures, K7 twice
+             per chunk and no host-library call, two host reads per chunk
+             and no blocking sync per chunk; one chunk through the host
+             route gives the same counters
+ 17. quality host OSD (lam > 0): layered min-sum + relay 12 + OSD-60 on
+             [[610,61]] at W=40, 16 chunks of 2048 (quality_sweep_r5.jsonl
+             line 5), and the gross code, min-sum + relay 8 + OSD-20 at
+             p = 0.05, 8 chunks (bicycle_gross_r2.jsonl line 10): |z| < 4 on
+             the corrected fraction and 0 syndrome failures
 
 A check passes with 0 mismatches: finite messages bit for bit, NaN masks,
 decisions, failure flags and the max iteration count.  The last three lines
 are the card's ``nvidia-smi`` name and power limit, a JSON object
 describing each kernel (with its bound: the larger of its float operations
-over 67 TFLOP/s and its bytes over 3.35 TB/s), and
-``{"ok": true, "device": {...}}``.
+over 67 TFLOP/s and its bytes over 3.35 TB/s; K7's integer operations over
+the derived INT32 rate), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import subprocess
@@ -94,6 +121,8 @@ from qec_ldpc_tpu_torch.decoder.decode import (
     decode_batch,
     syndrome_fail,
 )
+from qec_ldpc_tpu_torch.decoder.osd import OSDecoder
+from qec_ldpc_tpu_torch.decoder.osd_device import DeviceOSD0, ranking
 from qec_ldpc_tpu_torch.decoder.relay import relay_decode_batch
 from qec_ldpc_tpu_torch.harness.stats import CodeStatistics
 from qec_ldpc_tpu_torch.kernels import (
@@ -103,15 +132,23 @@ from qec_ldpc_tpu_torch.kernels import (
     lifted_bp_cuda,
     lifted_min_sum_cuda,
     min_sum_cuda,
+    osd0_cuda,
 )
+from qec_ldpc_tpu_torch import native
+from qec_ldpc_tpu_torch.parallel import montecarlo
 from qec_ldpc_tpu_torch.parallel.montecarlo import (
     chunk_generator,
     relay_generator,
     run_monte_carlo,
+    run_monte_carlo_osd,
 )
 from qec_ldpc_tpu_torch.sampling import (
+    C_CONV_X,
+    C_CONV_Z,
     C_CORRECTED,
     C_LOGICAL,
+    C_SYN_X,
+    C_SYN_Z,
     C_TESTED,
     make_rank_basis_test,
 )
@@ -127,10 +164,22 @@ from workloads import (
     GROSS_P,
     GROSS_RELAY_CHUNKS,
     GROSS_RELAY_P,
+    GROSS_QUALITY_CHUNKS,
+    GROSS_QUALITY_LAM,
+    GROSS_QUALITY_P,
+    GROSS_QUALITY_RELAY,
     GROSS_RELAY_RETRIES,
     HEADLINE_CODE,
     MAX_ITERS,
+    OSD_BATCH,
+    OSD_CHUNKS,
+    OSD_LAM,
+    OSD_P,
+    OSD_WEIGHT,
     P_ERR,
+    QUALITY_CHUNKS,
+    QUALITY_LAM,
+    QUALITY_RELAY,
     RELAY_CHUNKS,
     RELAY_P,
     RELAY_RETRIES,
@@ -159,13 +208,24 @@ GROSS_MIN_SUM_CORRECTED = (262001, 262144)
 #       262144, 0.01, BPConfig(max_iters=100, kernel="xla"), seed=1,
 #       batch_size=2048, error_model="depolarizing", steps_per_call=8)
 GROSS_SUM_PRODUCT_CORRECTED = (261945, 262144)
+# the JAX package's quality-mode records, (count, tested) from the rounded
+# fractions: min-sum + device OSD-0 at W=40, corrected 0.95665 and
+# convergence-fail (X + Z) 0.03729 of 524,288 (quality_sweep_r5.jsonl line
+# 10); layered + relay 12 + OSD-60 at W=40, corrected 0.97535 (line 5); the
+# gross code, min-sum + relay 8 + OSD-20 at p = 0.05, corrected 0.994812 of
+# 16,384 (bicycle_gross_r2.jsonl line 10)
+OSD_CORRECTED = (round(0.95665 * 524288), 524288)
+OSD_CONV_FAIL = (round(0.03729 * 524288), 524288)
+QUALITY_CORRECTED = (round(0.97535 * 524288), 524288)
+GROSS_QUALITY_CORRECTED = (round(0.994812 * 16384), 16384)
 
 LIBRARIES = (("qec_bp", bp_cuda.SOURCES), ("qec_min_sum", min_sum_cuda.SOURCES),
              ("qec_layered", layered_cuda.SOURCES),
              ("qec_lifted_min_sum", lifted_min_sum_cuda.SOURCES),
-             ("qec_lifted_bp", lifted_bp_cuda.SOURCES))
+             ("qec_lifted_bp", lifted_bp_cuda.SOURCES),
+             ("qec_osd0", osd0_cuda.SOURCES))
 KERNEL_MODULES = (bp_cuda, min_sum_cuda, layered_cuda, lifted_min_sum_cuda,
-                  lifted_bp_cuda)
+                  lifted_bp_cuda, osd0_cuda)
 
 # The bound of a fixed-work decode: the larger of its float operations over
 # the H100 SXM's 67 TFLOP/s (float32 outside the tensor cores) and its bytes
@@ -184,6 +244,15 @@ PEAK_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 OPS_PER_EDGE_ITERATION = {"sum-product": 18, "min-sum": 15,
                           "min-sum-damped": 19, "layered": 13}
+# K7 is integer work.  The H100 SXM has 64 INT32 lanes per SM per clock, so
+# 132 SMs at the 1.98 GHz boost clock give ~16.7 T ops/s: derived from those
+# figures, not a data-sheet rate.  Per lane, each walked column costs every
+# row the XOR of the W = ceil(n/32) + 1 words plus the pick (bit test and
+# candidate mask: 2).
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+# K7 is timed on this many failed-lane inputs (the failed lanes of one
+# phase-14 decode, repeated)
+OSD_TIMED_LANES = 1024
 
 
 def check(ok: bool, what: str) -> None:
@@ -203,6 +272,7 @@ def reset_counts() -> None:
     layered_cuda.launches = 0
     lifted_min_sum_cuda.launches = 0
     lifted_bp_cuda.launches = 0
+    osd0_cuda.launches = 0
 
 
 def read_counts() -> dict[str, int]:
@@ -211,7 +281,8 @@ def read_counts() -> dict[str, int]:
             "min_sum_wide": min_sum_cuda.wide_launches,
             "layered_min_sum": layered_cuda.launches,
             "lifted_min_sum": lifted_min_sum_cuda.launches,
-            "lifted_bp": lifted_bp_cuda.launches}
+            "lifted_bp": lifted_bp_cuda.launches,
+            "osd0": osd0_cuda.launches}
 
 
 def bound(graph, batch: int, iters: int, algorithm: str,
@@ -342,14 +413,14 @@ def time_ms(fn, reps: int) -> float:
 
 
 def time_pair(label: str, kernel, plain, kernel_reps: int, plain_reps: int,
-              **fields) -> tuple[float, float]:
+              batch: int = BATCH, **fields) -> tuple[float, float]:
     """Kernel vs plain in turns (plain, kernel, kernel, plain); returns the
     mean ms of each."""
     plain_ms = [time_ms(plain, plain_reps)]
     kernel_ms = [time_ms(kernel, kernel_reps), time_ms(kernel, kernel_reps)]
     plain_ms.append(time_ms(plain, plain_reps))
     k_ms, p_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
-    say("time", kernel=label, batch=BATCH, **fields,
+    say("time", kernel=label, batch=batch, **fields,
         kernel_ms=[round(t, 4) for t in kernel_ms],
         plain_ms=[round(t, 3) for t in plain_ms],
         plain_over_kernel=f"{p_ms / k_ms:.2f}")
@@ -463,6 +534,303 @@ def check_repaired_lanes(graphs: CodeGraphs, sx, sz, p_err: float, seed: int,
         check(bool(sat[fixed_lanes].all()), "a repaired lane violates its syndrome")
     say("relay", chunk=0, repaired_lanes=repaired, retries_x=rx, retries_z=rz)
     return repaired
+
+
+@contextlib.contextmanager
+def counting(owner, name: str):
+    """Count the calls of ``owner.name`` inside the block; yields a
+    one-item list holding the count."""
+    calls = [0]
+    original = getattr(owner, name)
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return original(*args, **kwargs)
+
+    setattr(owner, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, original)
+
+
+def osd_failed_lanes(graphs: CodeGraphs, seed: int, device, batch: int,
+                     weight: int | None = None, p_err: float | None = None):
+    """One min-sum decode with soft outputs (ler_sweep's BPConfig: at most
+    100 iterations, a check every 10); per sector (X, Z): (H, syndromes,
+    soft outputs) of the lanes it leaves syndrome-failed."""
+    gen = chunk_generator(seed, 0, device)
+    if weight is not None:
+        xe, ze = sample_weight_w_errors(gen, graphs.code.n, weight, batch)
+    else:
+        xe, ze = sample_depolarizing_errors(gen, graphs.code.n, p_err, batch)
+    sx = graphs.x.syndrome(xe.to(torch.int32))
+    sz = graphs.z.syndrome(ze.to(torch.int32))
+    res = decode_batch(graphs, sx, sz, OSD_P if p_err is None else p_err,
+                       BPConfig(max_iters=MAX_ITERS, algorithm="min-sum",
+                                return_soft=True))
+    out = []
+    for bit, h, syn, soft in ((1, graphs.code.pcm_x, sx, res.soft_x),
+                              (2, graphs.code.pcm_z, sz, res.soft_z)):
+        idx = torch.nonzero((res.error_code & bit) != 0).flatten()
+        out.append((h, syn[:, idx], soft[:, idx]))
+    return out
+
+
+def osd0_args(h, syn: torch.Tensor, soft: torch.Tensor):
+    """K7's arguments for these lanes: H's packed columns, the syndromes
+    and the ranking of the soft outputs."""
+    dev = DeviceOSD0(h)
+    return (dev.columns(syn.device), syn.to(torch.int32).contiguous(),
+            ranking(soft), dev.m, dev.n, dev.rank)
+
+
+def compare_osd0(h, syn: torch.Tensor, soft: torch.Tensor):
+    """K7 vs its plain version on these lanes: (mismatches, max |diff|,
+    solved lanes); the outputs are corrections, solved flags, s_final, used
+    and pivcol."""
+    args = osd0_args(h, syn, soft)
+    got = osd0_cuda.osd0_solve(*args)
+    want = osd0_cuda.osd0_solve_plain(*args)
+    torch.cuda.synchronize()
+    mism = sum(int((g != w).sum()) for g, w in zip(got, want))
+    err = max((float((g.int() - w.int()).abs().max()) if g.numel() else 0.0)
+              for g, w in zip(got, want))
+    return mism, err, int(got[1].sum())
+
+
+def osd0_bound(hcols: torch.Tensor, syn: torch.Tensor, order: torch.Tensor,
+               m: int, n: int, rank: int) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    K7 on these lanes.  Operations: the work the plain walk counts on the
+    same inputs (per column before a lane's rank-th pivot, 2 per row for the
+    bit test and pick, plus the XORs of words c // 32 .. w in each row that
+    takes the pivot row); bytes: the order and syndromes read once per lane
+    and H's packed columns once, the corrections, flags, s_final, used and
+    pivcol written once."""
+    lanes = order.shape[0]
+    work = torch.zeros(lanes, dtype=torch.int64, device=order.device)
+    osd0_cuda.osd0_eliminate(osd0_cuda.ordered_system(hcols, syn, order, m, n),
+                             m, n, rank, work=work)
+    ops = int(work.sum())
+    nbytes = lanes * (4 * n + 4 * m) + 4 * n * -(-m // 32) + lanes * (n + 1 + 6 * m)
+    t_ops, t_bytes = ops / PEAK_INT32_OPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "bytes" if t_bytes > t_ops else "operations"
+
+
+def quality_run(label: str, graphs: CodeGraphs, weight: int, p_err: float,
+                cfg: BPConfig, chunks: int, batch: int, seed: int, lam: int,
+                logical_test, device, relay_retries: int = 0,
+                error_model: str = "weight", progress=None):
+    """One run_monte_carlo_osd with every launch count set to 0 just before
+    it and read just after, and the host-library calls and host reads
+    (event waits) counted.  Returns (counters, seconds, launch counts,
+    host-library calls, event waits)."""
+    reset_counts()
+    with counting(native, "osd_batch") as host_calls, \
+            counting(torch.cuda.Event, "synchronize") as waits:
+        t0 = time.perf_counter()
+        counters, lane_iters = run_monte_carlo_osd(
+            graphs, weight, chunks * batch, p_err, cfg, seed=seed,
+            batch_size=batch, lam=lam, error_model=error_model,
+            relay_retries=relay_retries, i_minus_p=logical_test,
+            progress=progress, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = read_counts()
+    tested = int(counters[C_TESTED])
+    say("main", path=label, samples=tested, seconds=f"{seconds:.4f}",
+        samples_per_s=f"{tested / seconds:.1f}",
+        lane_iters_per_s=f"{lane_iters / seconds:.1f}",
+        corrected_fraction=f"{counters[C_CORRECTED] / tested:.6f}",
+        counters=json.dumps([int(c) for c in counters]),
+        host_osd_calls=host_calls[0], host_reads=waits[0],
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    check(tested == chunks * batch, f"{label}: tested {tested}")
+    check(counters[C_SYN_X] == 0 and counters[C_SYN_Z] == 0,
+          f"{label}: OSD left syndrome failures")
+    return counters, seconds, counts, host_calls[0], waits[0]
+
+
+def gate_counts(label: str, what: str, k: int, n: int, reference) -> None:
+    """A count agrees with a JAX-package record by a two-proportion test."""
+    z = two_proportion_z(k, n, *reference)
+    say("gate", path=label, what=what, fraction=f"{k / n:.6f}",
+        reference=f"{reference[0] / reference[1]:.6f}", z=f"{z:+.2f}")
+    check(abs(z) < 4, f"{label}: {what} off the JAX package's record (z={z})")
+
+
+def osd_phases(device, g610: CodeGraphs, gross: CodeGraphs, bb756: CodeGraphs,
+               logical_610, logical_gross, worst: dict, times: dict,
+               launches: dict) -> dict:
+    """Phases 14-17: K7 checked and timed, the quality mode's main path
+    (device OSD-0) and the host-OSD quality stacks.  Fills ``worst``,
+    ``times`` and ``launches`` for K7; returns K7's (ms, plain ms, bound ms,
+    bound_by) per [[610,61]] sector."""
+    # 14. K7 vs plain on the card ---------------------------------------------
+    osd_lanes = osd_failed_lanes(g610, 15, device, OSD_BATCH, weight=OSD_WEIGHT)
+    gross_lanes = osd_failed_lanes(gross, 16, device, BATCH,
+                                   p_err=GROSS_QUALITY_P)
+    lanes_756 = osd_failed_lanes(bb756, 17, device, BATCH,
+                                 p_err=GROSS_QUALITY_P)
+    gen_osd = torch.Generator(device=device)
+    gen_osd.manual_seed(18)
+    cases = []
+    for side, (h, syn, soft) in zip("XZ", osd_lanes):
+        m, n = h.shape
+        rnd_syn = torch.randint(0, 2, (m, 64), generator=gen_osd, device=device,
+                                dtype=syn.dtype)
+        rnd_soft = torch.randn((n, 64), generator=gen_osd, device=device)
+        cases += [("[[610,61]]", side, "failed", h, syn, soft),
+                  ("[[610,61]]", side, "failed+random",
+                   h, torch.cat([syn, rnd_syn], dim=1),
+                   torch.cat([soft, rnd_soft], dim=1))]
+    for code, sectors in ((GROSS, gross_lanes), ("[[756,16,34]]", lanes_756)):
+        for side, (h, syn, soft) in zip("XZ", sectors):
+            cases.append((code, side, "failed", h, syn, soft))
+    worst["osd0"] = 0.0
+    for code, side, mode, h, syn, soft in cases:
+        mism, err, solved = compare_osd0(h, syn, soft)
+        say("check", kernel="osd0", code=code, graph=side, mode=mode,
+            lanes=syn.shape[1], solved=solved, mismatches=mism,
+            max_abs_err=err)
+        check(syn.shape[1] > 0, f"osd0: no failed lanes ({code} {side})")
+        check(mism == 0, f"osd0 disagrees with its plain version ({code} "
+                         f"{side} {mode})")
+        if mode == "failed":
+            check(solved == syn.shape[1], f"osd0: a decodable lane unsolved "
+                                          f"({code} {side})")
+        worst["osd0"] = max(worst["osd0"], err)
+    for side, (h, syn, soft) in zip("XZ", osd_lanes):
+        e_d, ok_d = OSDecoder(h, lam=0).decode(syn, soft)
+        with counting(native, "osd_batch") as host_calls:
+            e_h, ok_h = OSDecoder(h, lam=0, device="host").decode(syn, soft)
+        mism = int((e_d != e_h).sum()) + int((ok_d != ok_h).sum())
+        raw = torch.argsort(soft, dim=0, stable=True)
+        raw_cpu = torch.argsort(soft.cpu(), dim=0, stable=True)
+        rank_mism = int((ranking(soft).cpu() != ranking(soft.cpu())).sum())
+        say("check", what="osd0 vs host library", graph=side,
+            lanes=syn.shape[1], mismatches=mism, host_calls=host_calls[0],
+            ranking_cuda_vs_cpu_mismatches=rank_mism,
+            raw_argsort_cuda_vs_cpu_mismatches=int((raw.cpu() != raw_cpu).sum()),
+            zero_or_nan_soft=int(((soft == 0) | soft.isnan()).sum()))
+        check(mism == 0 and host_calls[0] == 1,
+              f"OSDecoder on CUDA vs the host library ({side})")
+        check(rank_mism == 0, f"the ranking differs on the card ({side})")
+    # planted lanes: ±0.0, NaN, ±inf and ties, which the real lanes lack
+    h, syn, soft = osd_lanes[1]
+    special = torch.tensor([0.0, -0.0, math.nan, math.inf, -math.inf, 1.5,
+                            -1.5], device=device)
+    pick = torch.randint(0, len(special), (soft.shape[0], 16),
+                         generator=gen_osd, device=device)
+    planted = torch.cat([soft[:, :8], special[pick]], dim=1)
+    planted[::7, :8] = special[pick[::7, :8]]
+    got_rank = ranking(planted).cpu()
+    want_rank = np.argsort(planted.cpu().numpy(), axis=0, kind="stable").T
+    rank_mism = int((got_rank != ranking(planted.cpu())).sum())
+    numpy_mism = int((got_rank.numpy() != want_rank).sum())
+    planted_syn = torch.cat([syn[:, :8], torch.randint(
+        0, 2, (syn.shape[0], 16), generator=gen_osd, device=device,
+        dtype=syn.dtype)], dim=1)
+    mism, err, solved = compare_osd0(h, planted_syn, planted)
+    say("check", what="ranking and osd0 on planted soft outputs",
+        lanes=planted.shape[1], special_values=int(
+            ((planted == 0) | ~planted.isfinite()).sum()),
+        ranking_cuda_vs_cpu_mismatches=rank_mism,
+        ranking_cuda_vs_numpy_mismatches=numpy_mism, mismatches=mism,
+        solved=solved)
+    check(rank_mism == 0 and numpy_mism == 0,
+          "the ranking of planted soft outputs differs on the card")
+    check(mism == 0, "osd0 disagrees with its plain version (planted)")
+    worst["osd0"] = max(worst["osd0"], err)
+
+    # 15. K7 time vs plain (OSD_TIMED_LANES failed-lane inputs) ----------------
+    osd_times = {}
+    for side, (h, syn, soft) in zip("XZ", osd_lanes):
+        idx = torch.arange(OSD_TIMED_LANES, device=device) % syn.shape[1]
+        args = osd0_args(h, syn[:, idx], soft[:, idx])
+        bound_ms, bound_by = osd0_bound(*args)
+        k_ms, p_ms = time_pair(
+            "osd0", lambda: osd0_cuda.osd0_solve(*args),
+            lambda: osd0_cuda.osd0_solve_plain(*args), 20, 2,
+            batch=OSD_TIMED_LANES,
+            graph=f"[[610,61]] {side}",
+            distinct_lanes=syn.shape[1], bound_ms=f"{bound_ms:.4f}",
+            bound_by=bound_by)
+        osd_times[side] = (k_ms, p_ms, bound_ms, bound_by)
+    times["osd0"] = osd_times["Z"][:2]
+
+    # 16. the quality mode's main path: min-sum + device OSD-0 ------------------
+    osd_cfg = BPConfig(max_iters=MAX_ITERS, algorithm="min-sum")
+    label = f"min-sum + OSD-{OSD_LAM} W={OSD_WEIGHT}"
+    syncs = {}
+    for chunks in (1, 3):  # the warm-up; the difference is per chunk
+        syncs[chunks] = count_syncs(lambda: run_monte_carlo_osd(
+            g610, OSD_WEIGHT, chunks * OSD_BATCH, OSD_P, osd_cfg, seed=0,
+            batch_size=OSD_BATCH, lam=OSD_LAM, i_minus_p=logical_610,
+            device=device))
+    per_chunk = []
+    counters, seconds, counts, host_calls, waits = quality_run(
+        label, g610, OSD_WEIGHT, OSD_P, osd_cfg, OSD_CHUNKS, OSD_BATCH, 8,
+        OSD_LAM, logical_610, device,
+        progress=lambda c, nc, cnt, it: per_chunk.append(cnt.copy()))
+    blocking = (syncs[3] - syncs[1]) / 2
+    say("main", path=label, warmup_host_syncs=json.dumps(syncs),
+        blocking_syncs_per_chunk=blocking,
+        host_reads_per_chunk=waits / OSD_CHUNKS)
+    check(counts["osd0"] == 2 * OSD_CHUNKS and counts["min_sum"] == 2 * OSD_CHUNKS
+          and host_calls == 0,
+          f"{label}: launches {counts}, host-library calls {host_calls}")
+    check(blocking == 0 and waits == 2 * OSD_CHUNKS,
+          f"{label}: {blocking} blocking syncs and {waits / OSD_CHUNKS} host "
+          f"reads per chunk")
+    launches["osd0"] = counts["osd0"]
+    tested = int(counters[C_TESTED])
+    gate_counts(label, "corrected", int(counters[C_CORRECTED]), tested,
+                OSD_CORRECTED)
+    gate_counts(label, "convergence-fail (X + Z)",
+                int(counters[C_CONV_X] + counters[C_CONV_Z]), tested,
+                OSD_CONV_FAIL)
+    # chunk 0 again, through the host route
+    original = montecarlo.CSSPostprocessor
+    montecarlo.CSSPostprocessor = (
+        lambda graphs, lam=0: original(graphs, lam=lam, device="host"))
+    try:
+        with counting(native, "osd_batch") as host_calls:
+            host_counters, _ = run_monte_carlo_osd(
+                g610, OSD_WEIGHT, OSD_BATCH, OSD_P, osd_cfg, seed=8,
+                batch_size=OSD_BATCH, lam=OSD_LAM, i_minus_p=logical_610,
+                device=device)
+    finally:
+        montecarlo.CSSPostprocessor = original
+    say("main", path=label, chunk=0, device_route=json.dumps(
+        [int(c) for c in per_chunk[0]]), host_route=json.dumps(
+        [int(c) for c in host_counters]), host_calls=host_calls[0])
+    check(host_calls[0] == 2 and np.array_equal(per_chunk[0], host_counters),
+          f"{label}: the host route's chunk 0 differs")
+
+    # 17. the host-OSD quality stacks -----------------------------------------
+    for label, graphs, weight, p_err, cfg, chunks, relay, lam, model, \
+            logical, reference in (
+            (f"layered + relay{QUALITY_RELAY} + OSD-{QUALITY_LAM} W={OSD_WEIGHT}",
+             g610, OSD_WEIGHT, OSD_P,
+             BPConfig(max_iters=MAX_ITERS, algorithm="layered-min-sum"),
+             QUALITY_CHUNKS, QUALITY_RELAY, QUALITY_LAM, "weight",
+             logical_610, QUALITY_CORRECTED),
+            (f"gross min-sum + relay{GROSS_QUALITY_RELAY} + "
+             f"OSD-{GROSS_QUALITY_LAM} p={GROSS_QUALITY_P}", gross, 0,
+             GROSS_QUALITY_P, osd_cfg, GROSS_QUALITY_CHUNKS,
+             GROSS_QUALITY_RELAY, GROSS_QUALITY_LAM, "depolarizing",
+             logical_gross, GROSS_QUALITY_CORRECTED)):
+        counters, _, counts, host_calls, _ = quality_run(
+            label, graphs, weight, p_err, cfg, chunks, BATCH, 9, lam, logical,
+            device, relay_retries=relay, error_model=model)
+        check(host_calls > 0 and counts["osd0"] == 0,
+              f"{label}: host-library calls {host_calls}, K7 launches "
+              f"{counts['osd0']}")
+        gate_counts(label, "corrected", int(counters[C_CORRECTED]),
+                    int(counters[C_TESTED]), reference)
+    return osd_times
 
 
 def main() -> int:
@@ -747,6 +1115,9 @@ def main() -> int:
     sx, sz = syndromes(gross, 0, 6, device, p_err=GROSS_RELAY_P)
     check_repaired_lanes(gross, sx, sz, GROSS_RELAY_P, 6, relay_cfg,
                          GROSS_RELAY_RETRIES, device)
+
+    osd_times = osd_phases(device, g610, gross, bb756, logical_610,
+                           logical_gross, worst, times, launches)
     check("jax" not in sys.modules, "the port imported jax")
 
     print(smi, flush=True)
@@ -783,6 +1154,20 @@ def main() -> int:
             # no single PyTorch call computes BP decoding
             "library_ms": None,
         })
+    rows.append({
+        "name": "osd0",
+        "route": "cuda",
+        "source": "qec_ldpc_tpu_torch/csrc/osd0.cu",
+        "replaces": "qec_ldpc_tpu/kernels/osd0_pallas.py:135",
+        "launches": launches["osd0"],
+        "max_abs_err": worst["osd0"],
+        "ms": times["osd0"][0],
+        "plain_ms": times["osd0"][1],
+        "bound_ms": osd_times["Z"][2],
+        "bound_by": osd_times["Z"][3],
+        # no PyTorch call does GF(2) elimination
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -3,13 +3,15 @@
 
     python3 profile_cells.py [--cells headline,gross-min-sum,...]
 
-Each cell is one ``run_monte_carlo`` workload of ``chip_smoke.py``, defined
-in ``workloads.py``.  For each: a warm-up run, ``RUNS`` (3) unprofiled runs
-timed on the host clock (wall per chunk, samples/s), then one run under
-``torch.profiler`` with CPU and CUDA activities.  From the profiled run it reports the device busy time
+Each cell is one ``run_monte_carlo`` workload of ``chip_smoke.py`` (the
+``osd`` cell: ``run_monte_carlo_osd``), defined in ``workloads.py``.  For
+each: a warm-up run, ``RUNS`` (3) unprofiled runs timed on the host clock
+(wall per chunk, samples/s), then one run under ``torch.profiler`` with CPU
+and CUDA activities.  From the profiled run it reports the device busy time
 per chunk (the sum of the self device time of every device operation), the
 idle share (1 - busy / unprofiled wall, since the profiler slows the host),
-the decode kernel's share of device time and its ms per launch, and the
+the decode kernel's share of device time and its ms per launch, the same
+for every kernel of the cell (``kernels``: the OSD-0 kernel too), and the
 device operations per chunk.  Prints one JSON line per cell, then the
 card's ``nvidia-smi`` name and power limit.  Needs CUDA; never falls back to
 the CPU.
@@ -40,6 +42,11 @@ from workloads import (
     GROSS_RELAY_RETRIES,
     HEADLINE_CODE,
     MAX_ITERS,
+    OSD_BATCH,
+    OSD_CHUNKS,
+    OSD_LAM,
+    OSD_P,
+    OSD_WEIGHT,
     P_ERR,
     RELAY_CHUNKS,
     RELAY_P,
@@ -52,26 +59,29 @@ from workloads import (
 RUNS = 3  # unprofiled timed runs per cell
 
 # cell -> (code, error model, weight, p, config, chunks, relay retries,
-#          decode kernel name as the profiler shows it)
+#          kernel names as the profiler shows them, the decode kernel first
+#          [, batch, OSD lam])
 MIN_SUM = BPConfig(max_iters=MAX_ITERS, algorithm="min-sum")
 CELLS = {
     "headline": ("610", "weight", WEIGHT, P_ERR, BPConfig(max_iters=MAX_ITERS),
-                 CHUNKS, 0, "bp_sum_product_kernel"),
+                 CHUNKS, 0, ("bp_sum_product_kernel",)),
     "layered": ("610", "weight", WEIGHT, P_ERR,
                 BPConfig(max_iters=MAX_ITERS, algorithm="layered-min-sum"),
-                CHUNKS, 0, "layered_min_sum_kernel"),
+                CHUNKS, 0, ("layered_min_sum_kernel",)),
     "min-sum": ("610", "weight", WEIGHT, P_ERR, MIN_SUM, CHUNKS, 0,
-                "min_sum_kernel"),
+                ("min_sum_kernel",)),
     "relay": ("610", "weight", RELAY_WEIGHT, RELAY_P, MIN_SUM, RELAY_CHUNKS,
-              RELAY_RETRIES, "min_sum_kernel"),
+              RELAY_RETRIES, ("min_sum_kernel",)),
     "gross-min-sum": ("gross", "depolarizing", 0, GROSS_P, MIN_SUM, CHUNKS, 0,
-                      "lifted_min_sum_kernel"),
+                      ("lifted_min_sum_kernel",)),
     "gross-sum-product": ("gross", "depolarizing", 0, GROSS_P,
                           BPConfig(max_iters=MAX_ITERS), CHUNKS, 0,
-                          "lifted_bp_kernel"),
+                          ("lifted_bp_kernel",)),
     "gross-relay": ("gross", "depolarizing", 0, GROSS_RELAY_P, MIN_SUM,
                     GROSS_RELAY_CHUNKS, GROSS_RELAY_RETRIES,
-                    "lifted_min_sum_kernel"),
+                    ("lifted_min_sum_kernel",)),
+    "osd": ("610", "weight", OSD_WEIGHT, OSD_P, MIN_SUM, OSD_CHUNKS, 0,
+            ("min_sum_kernel", "osd0_kernel"), OSD_BATCH, OSD_LAM),
 }
 
 
@@ -87,14 +97,23 @@ def build_graphs(code: str) -> CodeGraphs:
 
 
 def profile_cell(name: str, graphs, logical, device) -> dict:
-    _, model, weight, p_err, cfg, chunks, retries, kernel = CELLS[name]
+    _, model, weight, p_err, cfg, chunks, retries, kernels, *osd = CELLS[name]
+    batch, lam = osd if osd else (BATCH, None)
 
     def run():
-        counters, _ = run_monte_carlo(
-            graphs, weight, chunks * BATCH, p_err, cfg, seed=1,
-            batch_size=BATCH, steps_per_call=STEPS_PER_CALL,
-            relay_retries=retries, i_minus_p=logical, error_model=model,
-            device=device)
+        if lam is None:
+            counters, _ = run_monte_carlo(
+                graphs, weight, chunks * batch, p_err, cfg, seed=1,
+                batch_size=batch, steps_per_call=STEPS_PER_CALL,
+                relay_retries=retries, i_minus_p=logical, error_model=model,
+                device=device)
+        else:  # imported here: earlier trees of the port lack it
+            from qec_ldpc_tpu_torch.parallel.montecarlo import run_monte_carlo_osd
+
+            counters, _ = run_monte_carlo_osd(
+                graphs, weight, chunks * batch, p_err, cfg, seed=1,
+                batch_size=batch, lam=lam, relay_retries=retries,
+                i_minus_p=logical, error_model=model, device=device)
         torch.cuda.synchronize()
         return counters
 
@@ -112,9 +131,16 @@ def profile_cell(name: str, graphs, logical, device) -> dict:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
     ops = sum(e.count for e in events)
-    decode = [e for e in events if kernel in e.key]
-    decode_us = sum(e.self_device_time_total for e in decode)
-    launches = sum(e.count for e in decode)
+    shares = {}
+    for kernel in kernels:
+        mine = [e for e in events if kernel in e.key]
+        us = sum(e.self_device_time_total for e in mine)
+        launches = sum(e.count for e in mine)
+        shares[kernel] = {
+            "share_of_device": us / busy_us if busy_us else None,
+            "ms_per_launch": 1e-3 * us / launches if launches else None,
+            "launches": launches}
+    decode = shares[kernels[0]]
     wall_ms = 1e3 * min(walls) / chunks
     busy_ms = 1e-3 * busy_us / chunks
     return {
@@ -124,10 +150,11 @@ def profile_cell(name: str, graphs, logical, device) -> dict:
         "samples_per_s": [int(counters[C_TESTED]) / w for w in walls],
         "device_busy_ms_per_chunk": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
-        "decode_kernel": kernel,
-        "decode_share_of_device": decode_us / busy_us if busy_us else None,
-        "decode_ms_per_launch": 1e-3 * decode_us / launches if launches else None,
-        "decode_launches": launches,
+        "decode_kernel": kernels[0],
+        "decode_share_of_device": decode["share_of_device"],
+        "decode_ms_per_launch": decode["ms_per_launch"],
+        "decode_launches": decode["launches"],
+        "kernels": shares,
         "device_ops_per_chunk": ops / chunks,
     }
 

@@ -11,10 +11,13 @@ Layers (mirroring ``qec_ldpc_tpu``):
   codes/     the port's copy of the NumPy-only code layer (QC-CSS, bivariate
              bicycle, hypergraph-product and toric codes)
   decoder/   circulant and lifted layouts, plain sum-product, min-sum and
-             layered min-sum, X/Z decode + decisions, relay retries
+             layered min-sum, X/Z decode + decisions and soft outputs, relay
+             retries, OSD post-processing (host solver and device OSD-0)
   kernels/   hand-written CUDA kernels (csrc/) with their ctypes wrappers
+  native/    the host GF(2) library (gf2.cpp, built by g++ at first use)
   sampling/  Pauli error sampling and outcome classification
-  parallel/  single-device Monte-Carlo loop (relay mode included)
+  parallel/  single-device Monte-Carlo loop (relay mode included) and the
+             OSD quality mode
   harness/   CodeStatistics record (reference-exact text)
   convert    carries graphs, logical tests and configs across from JAX
 """

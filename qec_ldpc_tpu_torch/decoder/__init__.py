@@ -1,6 +1,6 @@
 """Batched BP decoding over circulant and lifted Tanner graphs (PyTorch):
-sum-product, min-sum, layered min-sum (circulant only) and the relay
-decoder."""
+sum-product, min-sum, layered min-sum (circulant only), the relay decoder,
+and OSD post-processing (host solver, and device OSD-0)."""
 
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
 from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
@@ -19,10 +19,13 @@ from qec_ldpc_tpu_torch.decoder.decode import (
     syndromes_from_errors,
 )
 from qec_ldpc_tpu_torch.decoder.relay import relay_decode_batch
+from qec_ldpc_tpu_torch.decoder.osd_device import DeviceOSD0
+from qec_ldpc_tpu_torch.decoder.osd import CSSPostprocessor, OSDecoder
 
 __all__ = [
     "CirculantGraph", "LiftedGraph", "BPConfig", "bp_run", "min_sum_run",
     "prior_llr", "layered_min_sum_run", "relay_decode_batch", "CodeGraphs", "DecodeResult",
     "decode_batch", "syndromes_from_errors", "SUCCESS", "SYNDROME_FAIL_X",
     "SYNDROME_FAIL_Z", "CONVERGENCE_FAIL_X", "CONVERGENCE_FAIL_Z",
+    "OSDecoder", "CSSPostprocessor", "DeviceOSD0",
 ]

@@ -19,6 +19,15 @@ re-encoding the decision.  Per algorithm:
 
 Each wrapper runs its CUDA kernel for CUDA tensors and its plain PyTorch
 version for CPU tensors.
+
+With ``cfg.return_soft`` the result also carries per-variable soft outputs
+``(num_vars, batch)`` float32, the reliabilities OSD ranks by
+(decoder/osd.py): layered min-sum's posterior ``q``; for min-sum the sum of
+each variable's edge LLRs; for sum-product the sum of its edges'
+``log1p(-v) - log(v)`` with ``v`` clipped to [1e-12, 1 - 1e-7] and NaN edges
+counting 0.  The edge sums run left to right over the incidence rank, the
+order JAX's CPU reduction takes, so min-sum soft outputs match it bit for
+bit on any device (a CUDA reduction promises no order).
 """
 
 from __future__ import annotations
@@ -80,6 +89,9 @@ class DecodeResult:
     #: () executed lane-iterations (sum over lanes of each lane's count)
     iter_samples_x: torch.Tensor
     iter_samples_z: torch.Tensor
+    #: (num_vars, batch) float32 soft outputs when ``cfg.return_soft``
+    soft_x: torch.Tensor | None = None
+    soft_z: torch.Tensor | None = None
 
 
 def decide(graph: CirculantGraph | LiftedGraph, v: torch.Tensor,
@@ -107,10 +119,36 @@ def syndrome_fail(graph: CirculantGraph | LiftedGraph,
     return (graph.syndrome(decisions.to(torch.int32)) != syndrome).any(dim=0)
 
 
+def _edge_sum(vv: torch.Tensor) -> torch.Tensor:
+    """(rank, num_vars, batch) -> (num_vars, batch): the sum over the
+    incidence rank, left to right."""
+    total = vv[0]
+    for i in range(1, vv.shape[0]):
+        total = total + vv[i]
+    return total
+
+
+def soft_output(graph: CirculantGraph | LiftedGraph, v: torch.Tensor,
+                cfg: BPConfig) -> torch.Tensor:
+    """Per-variable soft output from final messages ``v`` of
+    ``cfg.algorithm`` ("min-sum": LLRs, "sum-product": probabilities): the
+    sum of the edge LLRs, an affine image of the posterior LLR within a lane
+    (each edge is the prior plus a leave-one-out sum), so it ranks the
+    variables as the posterior does."""
+    vv = graph.vn_view(graph.to_var(v))  # (rank, num_vars, batch)
+    if cfg.algorithm == "min-sum":
+        return _edge_sum(vv)
+    # a NaN edge (0/0 on a saturated lane) carries no information: 0 LLR
+    vc = vv.clamp(1e-12, 1.0 - 1e-7)
+    term = torch.log1p(-vc) - torch.log(vc)
+    return _edge_sum(torch.where(vv.isnan(), 0.0, term))
+
+
 def _decode_one_graph(graph: CirculantGraph | LiftedGraph,
                       syndrome: torch.Tensor, prior: np.float32, cfg: BPConfig):
-    """One graph: ``(decisions, conv_fail, syn_fail, lane_iters)``, with
-    ``lane_iters`` (batch,) each lane's executed iterations."""
+    """One graph: ``(decisions, conv_fail, syn_fail, lane_iters, soft)``,
+    with ``lane_iters`` (batch,) each lane's executed iterations and
+    ``soft`` None unless ``cfg.return_soft``."""
     if cfg.algorithm == "layered-min-sum" and isinstance(graph, LiftedGraph):
         raise ValueError(
             "layered-min-sum requires a CirculantGraph (block-row layers of "
@@ -124,7 +162,9 @@ def _decode_one_graph(graph: CirculantGraph | LiftedGraph,
         # converge" is "the decision violates the syndrome"
         decisions = (q <= 0.0).to(torch.int8)
         syn_fail = syndrome_fail(graph, decisions, syndrome)
-        return decisions, syn_fail, syn_fail, lane_iters
+        # layered q IS the posterior
+        return (decisions, syn_fail, syn_fail, lane_iters,
+                q if cfg.return_soft else None)
     if cfg.algorithm == "min-sum":
         v, lane_iters = min_sum_cuda.min_sum_run(
             graph, syndrome, prior_llr(prior), cfg.max_iters, cfg.check_every,
@@ -133,7 +173,8 @@ def _decode_one_graph(graph: CirculantGraph | LiftedGraph,
         v, lane_iters = bp_cuda.bp_run(
             graph, syndrome, prior, cfg.max_iters, cfg.check_every,
             cfg.conv_low, cfg.conv_high)
-    return (*decide(graph, v, syndrome, cfg), lane_iters)
+    soft = soft_output(graph, v, cfg) if cfg.return_soft else None
+    return (*decide(graph, v, syndrome, cfg), lane_iters, soft)
 
 
 def decode_batch(
@@ -154,24 +195,22 @@ def decode_batch(
         raise NotImplementedError(
             "kernel_roll_impl='mxu' is a TPU matrix-unit routing; the port "
             "routes by index")
-    if cfg.return_soft:
-        raise NotImplementedError(
-            "return_soft feeds OSD post-processing, not ported yet (ROADMAP "
-            "queue 1 item 10)")
     prior = np.float32(cfg.prior_factor) * np.float32(error_probability)
     out = []
     for graph, syndrome in ((graphs.x, syndrome_x), (graphs.z, syndrome_z)):
         syndrome = syndrome.to(torch.int32).contiguous()
-        *flags, lane_iters = _decode_one_graph(graph, syndrome, prior, cfg)
-        out.append((*flags, lane_iters.max(), lane_iters.sum()))
-    (dx, cfx, sfx, itx, isx), (dz, cfz, sfz, itz, isz) = out
+        *flags, lane_iters, soft = _decode_one_graph(graph, syndrome, prior,
+                                                     cfg)
+        out.append((*flags, lane_iters.max(), lane_iters.sum(), soft))
+    (dx, cfx, sfx, itx, isx, softx), (dz, cfz, sfz, itz, isz, softz) = out
     code = (sfx.to(torch.int32) * SYNDROME_FAIL_X
             + sfz.to(torch.int32) * SYNDROME_FAIL_Z
             + cfx.to(torch.int32) * CONVERGENCE_FAIL_X
             + cfz.to(torch.int32) * CONVERGENCE_FAIL_Z)
     return DecodeResult(decisions_x=dx, decisions_z=dz, error_code=code,
                         iters_x=itx, iters_z=itz,
-                        iter_samples_x=isx, iter_samples_z=isz)
+                        iter_samples_x=isx, iter_samples_z=isz,
+                        soft_x=softx, soft_z=softz)
 
 
 def syndromes_from_errors(

@@ -13,14 +13,34 @@ from (seed, global chunk id) — one for the errors and, with
 statistics do not depend on how chunks are grouped.  Counters stay on the
 device for a whole group of ``steps_per_call`` chunks; the host reads them
 once per group.
+
+:func:`run_monte_carlo_osd` is the quality mode (the port of JAX's
+function of that name, single device): the same samples, then OSD
+(decoder/osd.py) on the lanes BP and relay leave failed:
+
+  sample -> syndromes -> decode with soft outputs [-> relay] -> classify
+  the other lanes and move the failed ones to the front -> OSD on the
+  failed lanes -> splice the corrections -> classify the failed lanes.
+
+Not ported (TPU-only, invisible in the results): the power-of-two rounding
+of the failed-lane fetch (``_gather_failed_lanes``), which bounded the
+number of compiled shapes.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs, decode_batch
+from qec_ldpc_tpu_torch.decoder.decode import (
+    SYNDROME_FAIL_X,
+    SYNDROME_FAIL_Z,
+    CodeGraphs,
+    decode_batch,
+)
+from qec_ldpc_tpu_torch.decoder.osd import CSSPostprocessor, splice
 from qec_ldpc_tpu_torch.decoder.relay import relay_decode_batch
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig
 from qec_ldpc_tpu_torch.sampling.classify import (
@@ -208,4 +228,196 @@ def run_monte_carlo(
         total_iters += group_iters
         if progress is not None:
             progress(gi, len(groups), group_counters, group_iters)
+    return totals, total_iters
+
+
+#: error-code bits that route a lane through OSD
+_SYN_BITS = SYNDROME_FAIL_X | SYNDROME_FAIL_Z
+
+
+class _Fetch:
+    """A small device tensor on its way to the host: the copy is queued at
+    construction, and :meth:`get` waits for that copy alone, not for work
+    queued after it (a CUDA event, not a stream synchronisation)."""
+
+    def __init__(self, tensor: torch.Tensor):
+        self._host = tensor.to("cpu", non_blocking=True)
+        self._ready = None
+        if tensor.is_cuda:
+            self._ready = torch.cuda.Event()
+            self._ready.record()
+
+    def get(self) -> np.ndarray:
+        if self._ready is not None:
+            self._ready.synchronize()
+        return self._host.numpy()
+
+
+def _classify_and_compact(i_minus_p, xe, ze, sx, sz, res):
+    """Classify every lane without a syndrome-fail bit on the device, and
+    permute the per-lane arrays so the failed lanes come first, in their
+    order.  Returns ``(counters_ok, counts, bundle)``: ``counts`` (3,) int64
+    holds the failed lanes, the X-failed and the Z-failed; ``bundle`` is
+    (xe, ze, sx, sz, dx, dz, soft_x, soft_z, error_code) compacted (the
+    soft outputs None when the decode made none)."""
+    ec = res.error_code
+    fail = (ec & _SYN_BITS) != 0
+    counters = classify_batch(i_minus_p, xe, ze,
+                              res.decisions_x.to(torch.int32),
+                              res.decisions_z.to(torch.int32), ec, valid=~fail)
+    order = torch.argsort((~fail).to(torch.int32), stable=True)
+    bundle = tuple(None if a is None else a.index_select(a.dim() - 1, order)
+                   for a in (xe, ze, sx, sz, res.decisions_x, res.decisions_z,
+                             res.soft_x, res.soft_z, ec))
+    counts = torch.stack([fail.sum(), ((ec & SYNDROME_FAIL_X) != 0).sum(),
+                          ((ec & SYNDROME_FAIL_Z) != 0).sum()])
+    return counters, counts, bundle
+
+
+def _osd_chunk(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
+               weight: int, error_probability: float, cfg: BPConfig,
+               batch: int, error_model: str, relay_retries: int,
+               relay_gen: torch.Generator | None):
+    """The device half of one quality-mode chunk: sample, decode (with soft
+    outputs), classify the non-failed lanes, compact.  Returns
+    ``(counters_ok, iters[2], counts fetch, bundle)``; the failed-lane
+    counts are already on their way to the host."""
+    xe, ze, sx, sz, res = _sample_and_decode(
+        graphs, generator, weight, error_probability, cfg, batch, error_model,
+        relay_retries, relay_gen)
+    counters, counts, bundle = _classify_and_compact(i_minus_p, xe, ze, sx,
+                                                     sz, res)
+    iters = torch.stack([res.iter_samples_x, res.iter_samples_z])
+    return counters, iters, _Fetch(counts), bundle
+
+
+def _repair_and_classify(post: CSSPostprocessor | None, i_minus_p,
+                         counts: np.ndarray, bundle) -> torch.Tensor:
+    """The tail of a quality-mode chunk: OSD-repair the failed lanes (the
+    first ``counts[0]`` of the compacted bundle; none when ``post`` is None)
+    and classify them.  The solves run where ``post``'s decoders route them
+    (OSD-0 on the device, ``lam > 0`` on the host); splicing and
+    classification stay on the bundle's device, where the X- and Z-failed
+    lanes are found from their known counts, with no host read.  Returns
+    the failed lanes' int32 counters on that device."""
+    k, k_x, k_z = (int(v) for v in counts)
+    if k == 0:
+        return torch.zeros(NUM_COUNTERS, dtype=torch.int32,
+                           device=bundle[-1].device)
+    xe, ze, sx, sz, dx, dz, soft_x, soft_z, ec = (
+        None if a is None else a[..., :k] for a in bundle)
+    dec = {SYNDROME_FAIL_X: dx, SYNDROME_FAIL_Z: dz}
+    if post is not None:
+        for bit, osd, kb, syn, soft in (
+                (SYNDROME_FAIL_X, post.x, k_x, sx, soft_x),
+                (SYNDROME_FAIL_Z, post.z, k_z, sz, soft_z)):
+            if kb:
+                failed = torch.argsort(((ec & bit) == 0).to(torch.int32),
+                                       stable=True)[:kb]
+                dec[bit], ec = splice(osd, dec[bit], ec, bit, syn, soft,
+                                      failed)
+    return classify_batch(i_minus_p, xe, ze,
+                          dec[SYNDROME_FAIL_X].to(torch.int32),
+                          dec[SYNDROME_FAIL_Z].to(torch.int32), ec)
+
+
+def run_monte_carlo_osd(
+    graphs: CodeGraphs,
+    weight: int,
+    count: int,
+    error_probability: float,
+    cfg: BPConfig,
+    seed: int,
+    batch_size: int = 1024,
+    lam: int = 0,
+    error_model: str = "weight",
+    progress: "callable | None" = None,
+    relay_retries: int = 0,
+    i_minus_p=None,
+    start_chunk: int = 0,
+    init_counters: np.ndarray | None = None,
+    *,
+    device: torch.device | str,
+    mesh=None,
+):
+    """Monte-Carlo statistics with repair of BP failures (the quality mode)
+    on ``device``.
+
+    The counter contract, chunking and per-chunk generators of
+    :func:`run_monte_carlo`, so the error draws are the same seed for seed.
+    Two repair stages, each optional: ``relay_retries > 0`` runs relay
+    retries on the device; ``lam >= 0`` runs OSD on whatever still fails
+    (``lam`` is the combination-sweep depth; ``lam == -1`` turns OSD off).
+    ``lam == 0`` solves on ``device`` (K7 on a GPU); ``lam > 0`` solves on
+    the host.  Every OSD-solved lane satisfies its syndrome, so with OSD on
+    the syndrome-fail counters end at 0; convergence-fail counters keep
+    their meaning.  Pair OSD with ``algorithm="min-sum"`` or
+    ``"layered-min-sum"``.
+
+    The host reads two small vectors per chunk: the failed-lane counts and
+    the chunk's counters.  Chunk c + 1 is queued on the device before chunk
+    c's OSD tail, and each read waits for its own chunk only, so the device
+    stays busy.  ``progress(chunk, num_chunks, counters, lane_iters)`` is
+    called per chunk; ``start_chunk`` / ``init_counters`` resume from
+    post-repair counters at a chunk boundary.
+
+    Returns (counters[NUM_COUNTERS] int64 numpy, total_bp_lane_iterations).
+    """
+    if mesh is not None:
+        raise NotImplementedError("mesh runs are not ported yet (ROADMAP "
+                                  "queue 1 item 12)")
+    if (torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError("multi-process quality runs are not ported "
+                                  "yet (ROADMAP queue 1 item 12)")
+    device = torch.device(device)
+    post = None
+    if lam >= 0:
+        cfg = dataclasses.replace(cfg, return_soft=True)
+        post = CSSPostprocessor(graphs, lam=lam).to(device)
+    i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
+    totals = np.zeros(NUM_COUNTERS, dtype=np.int64)
+    if init_counters is not None:
+        totals += np.asarray(init_counters, dtype=np.int64)
+    total_iters = 0
+    num_chunks = -(-count // batch_size)
+
+    def dispatch(c):
+        return c, _osd_chunk(graphs, i_minus_p, chunk_generator(seed, c, device),
+                             weight, error_probability, cfg, batch_size,
+                             error_model, relay_retries,
+                             relay_generator(seed, c, device)
+                             if relay_retries > 0 else None)
+
+    def tail(item):
+        c, (counters_ok, iters, counts, bundle) = item
+        failed = _repair_and_classify(post, i_minus_p, counts.get(), bundle)
+        return c, _Fetch(torch.cat([(counters_ok + failed).to(torch.int64),
+                                    iters.to(torch.int64)]))
+
+    def finish(item):
+        nonlocal totals, total_iters
+        c, fetch = item
+        host = fetch.get()
+        counters = host[:NUM_COUNTERS]
+        chunk_iters = int(host[NUM_COUNTERS:].sum())
+        totals += counters
+        total_iters += chunk_iters
+        if progress is not None:
+            progress(c, num_chunks, counters, chunk_iters)
+
+    # a one-deep pipeline: chunk c's tail is queued after chunk c + 1's
+    # device half, and its counters are read after chunk c + 1's tail is
+    # queued
+    pending = queued = None
+    for c in range(start_chunk, num_chunks + 1):
+        out = dispatch(c) if c < num_chunks else None
+        if pending is not None:
+            done = tail(pending)
+            if queued is not None:
+                finish(queued)
+            queued = done
+        pending = out
+    if queued is not None:
+        finish(queued)
     return totals, total_iters

@@ -99,7 +99,6 @@ def test_decode_batch_exact_vs_jax(case, cfg):
 
 @pytest.mark.parametrize("change", [
     {"kernel_roll_impl": "mxu"},
-    {"return_soft": True},
 ])
 def test_unported_options_raise(case, change):
     _, tg, xe, ze = case

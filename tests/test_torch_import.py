@@ -12,7 +12,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "qec_ldpc_tpu_torch"
 PORT_FILES = sorted(p for p in PORT.rglob("*.py") if "_build" not in p.parts) + [
-    ROOT / "chip_smoke.py", ROOT / "profile_cells.py"]
+    ROOT / "chip_smoke.py", ROOT / "profile_cells.py", ROOT / "workloads.py"]
 
 IMPORT_JAX = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
 IMPORT_REFERENCE = re.compile(r"^\s*(?:import|from)\s+qec_ldpc_tpu(?!_torch)\b",
@@ -27,6 +27,9 @@ def test_import_leaves_jax_out():
             "import qec_ldpc_tpu_torch.kernels.layered_cuda\n"
             "import qec_ldpc_tpu_torch.kernels.lifted_min_sum_cuda\n"
             "import qec_ldpc_tpu_torch.kernels.lifted_bp_cuda\n"
+            "import qec_ldpc_tpu_torch.kernels.osd0_cuda, qec_ldpc_tpu_torch.native\n"
+            "import qec_ldpc_tpu_torch.decoder.osd, qec_ldpc_tpu_torch.decoder.osd_device\n"
+            "from qec_ldpc_tpu_torch.parallel import run_monte_carlo_osd\n"
             "import qec_ldpc_tpu_torch.sampling, qec_ldpc_tpu_torch.parallel\n"
             "import qec_ldpc_tpu_torch.harness, qec_ldpc_tpu_torch.codes\n"
             "qec_ldpc_tpu_torch.codes.known_bicycle_code('[[144,12,12]]').build_graphs()\n"
@@ -44,3 +47,11 @@ def test_no_file_imports_jax(path):
     text = path.read_text()
     assert not IMPORT_JAX.search(text), path
     assert not IMPORT_REFERENCE.search(text), path
+
+
+def test_scan_covers_the_osd_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"qec_ldpc_tpu_torch/native/__init__.py",
+            "qec_ldpc_tpu_torch/decoder/osd.py",
+            "qec_ldpc_tpu_torch/decoder/osd_device.py",
+            "qec_ldpc_tpu_torch/kernels/osd0_cuda.py"} <= names
