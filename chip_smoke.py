@@ -13,10 +13,10 @@ line: the gross code [[144,12,12]], depolarizing p = 0.01.  Fails (non-zero
 exit) if any phase fails:
 
   1. device  needs CUDA; prints the card's name and power limit
-  2. build   compiles the five CUDA sources (csrc/bp_sum_product.cu,
+  2. build   compiles the seven CUDA sources (csrc/bp_sum_product.cu,
              min_sum.cu, layered_min_sum.cu, lifted_min_sum.cu,
-             lifted_bp.cu) with nvcc, all at once, and prints ptxas's
-             register and spill lines
+             lifted_bp.cu, osd0.cu, sharded_min_sum_step.cu) with nvcc, all
+             at once, and prints ptxas's register and spill lines
   3. check   K1 (sum-product) vs the plain PyTorch BP on the card:
              [[610,61]] X and Z at batch 2048, early exit and fixed 100
              iterations, and the [[42]] code at 30 fixed iterations
@@ -88,11 +88,41 @@ exit) if any phase fails:
              line 5), and the gross code, min-sum + relay 8 + OSD-20 at
              p = 0.05, 8 chunks (bicycle_gross_r2.jsonl line 10): |z| < 4 on
              the corrected fraction and 0 syndrome failures
+ 18. check   K8 (one graph-sharded min-sum step) vs its plain version on
+             every shard position of the [[5210,521]] X (B=4) and Z (B=5)
+             graphs at G=2 and G=5 and of the [[610,61]] X graph at G=2,
+             batch 1024 (phase 20's lanes per rank) and 2048, random V with
+             planted +-0.0, NaN and +-inf, half the lanes done, last 0 and 1
+ 19. time    K8: one step of shard 0 of 2 of the [[5210,521]] X graph at
+             batch 256, 1024 and 2048, kernel vs plain, beside its bound;
+             the kernels line reports batch 1024
+ 20. mesh    ranks spawned on the one card over gloo (workloads.py): at
+             (data=2) the headline sum-product through K1 (bench.py's gate),
+             then min-sum, layered and sum-product on [[5210,521]] (W=220,
+             p=0.01, 30 iterations, 4 chunks of 1024 lanes per data shard),
+             min-sum held to a JAX CPU run (SHARDED_MIN_SUM_CORRECTED) by a
+             two-proportion test; at (data=2 x graph=2) the same runs
+             graph-sharded: min-sum and layered counters equal the
+             data-only ones exactly, sum-product within |z| < 4, every rank
+             launches K8 once per X and Z loop iteration and K2 never; the
+             backend, collectives per iteration and host syncs per chunk
+             are printed; in every graph-sharded chunk, every lane that
+             reports no syndrome failure must satisfy its syndrome
+ 21. relay   (data=1 x graph=2): min-sum + 16 relay retries at W=40 (the
+             relay cell), 4 chunks of 2048, the repair rate held to a
+             data-parallel relay run of phase 20 (16 chunks) by a
+             two-proportion test (|z| < 4), with the smallest gap that test
+             detects printed, and every lane that reports no syndrome
+             failure (every repaired lane among them) satisfies its
+             syndrome
+
+Phases 20 and 21 share one card between their ranks, and gloo stages every
+collective through host memory: their times are not multi-card numbers.
 
 A check passes with 0 mismatches: finite messages bit for bit, NaN masks,
-decisions, failure flags and the max iteration count.  The last three lines
-are the card's ``nvidia-smi`` name and power limit, a JSON object
-describing each kernel (with its bound: the larger of its float operations
+decisions, failure flags and the max iteration count.  The last four lines
+are the wall time of ``main``, the card's ``nvidia-smi`` name and power
+limit, a JSON object describing each kernel (with its bound: the larger of its float operations
 over 67 TFLOP/s and its bytes over 3.35 TB/s; K7's integer operations over
 the derived INT32 rate), and ``{"ok": true, "device": {...}}``.
 """
@@ -103,6 +133,7 @@ import concurrent.futures
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -115,6 +146,8 @@ from qec_ldpc_tpu_torch import construct_code
 from qec_ldpc_tpu_torch.codes import find_code_params, known_bicycle_code, toric_code
 from qec_ldpc_tpu_torch.decoder import layered, min_sum, sum_product
 from qec_ldpc_tpu_torch.decoder.decode import (
+    SYNDROME_FAIL_X,
+    SYNDROME_FAIL_Z,
     BPConfig,
     CodeGraphs,
     decide,
@@ -133,9 +166,12 @@ from qec_ldpc_tpu_torch.kernels import (
     lifted_min_sum_cuda,
     min_sum_cuda,
     osd0_cuda,
+    sharded_step_cuda,
 )
 from qec_ldpc_tpu_torch import native
-from qec_ldpc_tpu_torch.parallel import montecarlo
+from qec_ldpc_tpu_torch.parallel import mc_graph, montecarlo
+from qec_ldpc_tpu_torch.parallel.graph_sharded import ShardRouter
+from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, spawn
 from qec_ldpc_tpu_torch.parallel.montecarlo import (
     chunk_generator,
     relay_generator,
@@ -170,6 +206,7 @@ from workloads import (
     GROSS_QUALITY_RELAY,
     GROSS_RELAY_RETRIES,
     HEADLINE_CODE,
+    K8_BATCHES,
     MAX_ITERS,
     OSD_BATCH,
     OSD_CHUNKS,
@@ -184,6 +221,16 @@ from workloads import (
     RELAY_P,
     RELAY_RETRIES,
     RELAY_WEIGHT,
+    SHARDED_BATCH,
+    SHARDED_CHUNKS,
+    SHARDED_CODE,
+    SHARDED_DATA,
+    SHARDED_GRAPH,
+    SHARDED_ITERS,
+    SHARDED_P,
+    SHARDED_RELAY_CHUNKS,
+    SHARDED_RELAY_REFERENCE_CHUNKS,
+    SHARDED_WEIGHT,
     STEPS_PER_CALL,
     WEIGHT,
 )
@@ -218,14 +265,22 @@ OSD_CORRECTED = (round(0.95665 * 524288), 524288)
 OSD_CONV_FAIL = (round(0.03729 * 524288), 524288)
 QUALITY_CORRECTED = (round(0.97535 * 524288), 524288)
 GROSS_QUALITY_CORRECTED = (round(0.994812 * 16384), 16384)
+# the JAX package's min-sum (XLA path) on the CPU at the graph-sharded
+# setting, counters [65536, 65536, 65536, 62880, 1235, 1104, 345, 1192, 486]
+# from
+#   run_monte_carlo(CodeGraphs.build(construct_code(4, 5, 10, 521, 25, 1)),
+#       220, 65536, 0.01, BPConfig(max_iters=30, algorithm="min-sum",
+#       kernel="xla"), seed=1, batch_size=1024)
+SHARDED_MIN_SUM_CORRECTED = (62880, 65536)
 
 LIBRARIES = (("qec_bp", bp_cuda.SOURCES), ("qec_min_sum", min_sum_cuda.SOURCES),
              ("qec_layered", layered_cuda.SOURCES),
              ("qec_lifted_min_sum", lifted_min_sum_cuda.SOURCES),
              ("qec_lifted_bp", lifted_bp_cuda.SOURCES),
-             ("qec_osd0", osd0_cuda.SOURCES))
+             ("qec_osd0", osd0_cuda.SOURCES),
+             ("qec_sharded_min_sum_step", sharded_step_cuda.SOURCES))
 KERNEL_MODULES = (bp_cuda, min_sum_cuda, layered_cuda, lifted_min_sum_cuda,
-                  lifted_bp_cuda, osd0_cuda)
+                  lifted_bp_cuda, osd0_cuda, sharded_step_cuda)
 
 # The bound of a fixed-work decode: the larger of its float operations over
 # the H100 SXM's 67 TFLOP/s (float32 outside the tensor cores) and its bytes
@@ -273,6 +328,7 @@ def reset_counts() -> None:
     lifted_min_sum_cuda.launches = 0
     lifted_bp_cuda.launches = 0
     osd0_cuda.launches = 0
+    sharded_step_cuda.launches = 0
 
 
 def read_counts() -> dict[str, int]:
@@ -282,7 +338,8 @@ def read_counts() -> dict[str, int]:
             "layered_min_sum": layered_cuda.launches,
             "lifted_min_sum": lifted_min_sum_cuda.launches,
             "lifted_bp": lifted_bp_cuda.launches,
-            "osd0": osd0_cuda.launches}
+            "osd0": osd0_cuda.launches,
+            "sharded_min_sum_step": sharded_step_cuda.launches}
 
 
 def bound(graph, batch: int, iters: int, algorithm: str,
@@ -833,7 +890,335 @@ def osd_phases(device, g610: CodeGraphs, gross: CodeGraphs, bb756: CodeGraphs,
     return osd_times
 
 
+# -- phases 18-21: K8 and the multi-device engines ----------------------------
+
+def k8_inputs(router: ShardRouter, batch: int, device, seed: int,
+              planted: bool):
+    """K8's (syn_sign, other, done, v) in the row layout: V ~ 4 N(0, 1), the
+    other shards' minima |N(0, 1)| + 0.5 and random signs, syndrome signs
+    -1 on 30% of checks.  ``planted``: about 3% each of +0.0, -0.0, NaN,
+    +inf and -inf in V and the minima, and half the lanes done; else no lane
+    done."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    checks = router.B * router.P
+
+    def draw(shape, nonneg=False):
+        a = torch.randn(shape, generator=gen, device=device) * 4
+        if nonneg:
+            a = a.abs() / 4 + 0.5
+        if planted:
+            pick = torch.rand(shape, generator=gen, device=device)
+            for i, value in enumerate((0.0, -0.0, math.nan, math.inf,
+                                       -math.inf)):
+                a[(pick >= 0.03 * i) & (pick < 0.03 * (i + 1))] = value
+        return a
+
+    def signs(shape, share):
+        return torch.where(torch.rand(shape, generator=gen, device=device)
+                           < share, -1.0, 1.0)
+
+    v = draw((router.Lc * checks, batch))
+    other = torch.cat([draw((checks, batch), nonneg=True),
+                       signs((checks, batch), 0.5)])
+    done = (torch.rand(batch, generator=gen, device=device) < 0.5
+            if planted else torch.zeros(batch, dtype=torch.bool, device=device))
+    return signs((checks, batch), 0.3), other, done, v
+
+
+def k8_bound(router: ShardRouter, batch: int) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for one K8 step.  Operations: min-sum's 15 per edge; bytes: V, the other
+    shards' (min; sign), the syndrome signs and the done mask read once, V_new
+    and the partials written once."""
+    rows, checks = router.Lc * router.B * router.P, router.B * router.P
+    nbytes = 4 * batch * (rows + 2 * checks + checks + rows + 2 * checks) + batch
+    flops = OPS_PER_EDGE_ITERATION["min-sum"] * rows * batch
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def check_k8(device, g610: CodeGraphs, g5210: CodeGraphs, llr: float) -> float:
+    """Phase 18: K8 vs plain on every shard position; returns the largest
+    finite |kernel - plain| (0 when bit for bit)."""
+    alpha = BPConfig().min_sum_alpha
+    worst = 0.0
+    for code, side, graph, G in (("[[5210,521]]", "X", g5210.x, 2),
+                                 ("[[5210,521]]", "X", g5210.x, 5),
+                                 ("[[5210,521]]", "Z", g5210.z, 2),
+                                 ("[[5210,521]]", "Z", g5210.z, 5),
+                                 ("[[610,61]]", "X", g610.x, 2)):
+        mism = nans = 0
+        for g in range(G):
+            router = ShardRouter(graph, G, g)
+            for batch in (SHARDED_BATCH, BATCH):
+                args = k8_inputs(router, batch, device, 180 + 10 * G + g, True)
+                for last in (0, 1):
+                    got = sharded_step_cuda.sharded_min_sum_step(
+                        router, llr, last, *args, alpha)
+                    want = sharded_step_cuda.sharded_min_sum_step_plain(
+                        router, llr, last, *args, alpha)
+                    torch.cuda.synchronize()
+                    for a, b in zip(got, want):
+                        m, err, n = bit_mismatches(a, b)
+                        mism, nans, worst = mism + m, nans + n, max(worst, err)
+        say("check", kernel="sharded_min_sum_step", code=code, graph=side,
+            G=G, Lc=graph.L // G, shards=G, last="0,1",
+            batch=f"{SHARDED_BATCH},{BATCH}", nan_entries=nans,
+            mismatches=mism)
+        check(mism == 0, f"K8 disagrees with its plain version ({code} "
+                         f"{side} G={G})")
+    return worst
+
+
+def time_k8(device, g5210: CodeGraphs, llr: float) -> dict:
+    """Phase 19: one step of shard 0 of 2 of the [[5210,521]] X graph,
+    kernel vs plain in turns; batch -> (ms, plain ms, bound ms, bound_by)."""
+    alpha = BPConfig().min_sum_alpha
+    router = ShardRouter(g5210.x, SHARDED_GRAPH, 0)
+    out = {}
+    for batch in K8_BATCHES:
+        args = k8_inputs(router, batch, device, 190, False)
+        bound_ms, bound_by = k8_bound(router, batch)
+        k_ms, p_ms = time_pair(
+            "sharded_min_sum_step",
+            lambda: sharded_step_cuda.sharded_min_sum_step(router, llr, 0,
+                                                           *args, alpha),
+            lambda: sharded_step_cuda.sharded_min_sum_step_plain(
+                router, llr, 0, *args, alpha),
+            200, 10, batch=batch, graph="[[5210,521]] X shard 0 of 2",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+        out[batch] = (k_ms, p_ms, bound_ms, bound_by)
+    return out
+
+
+@contextlib.contextmanager
+def auditing_syndromes(graphs: CodeGraphs, device):
+    """Inside the block, audit on the card every chunk that the
+    graph-sharded Monte-Carlo (``mc_graph``) classifies: in each sector, a
+    lane whose error code reports no syndrome failure must have gathered
+    decisions that reproduce its syndrome.  Yields an int64 tensor (lanes
+    audited, X and Z counted apart; lanes violating their syndrome), kept
+    on the card so that the audit adds no host sync."""
+    tally = torch.zeros(2, dtype=torch.int64, device=device)
+    classify = mc_graph.classify_batch
+
+    def audited(i_minus_p, xe, ze, dx, dz, code, *rest, **kw):
+        for bit, graph, e, d in ((SYNDROME_FAIL_X, graphs.x, xe, dx),
+                                 (SYNDROME_FAIL_Z, graphs.z, ze, dz)):
+            ok = (code & bit) == 0
+            bad = (graph.syndrome(d) != graph.syndrome(e)).any(dim=0)
+            tally[0] += ok.sum()
+            tally[1] += (ok & bad).sum()
+        return classify(i_minus_p, xe, ze, dx, dz, code, *rest, **kw)
+
+    mc_graph.classify_batch = audited
+    try:
+        yield tally
+    finally:
+        mc_graph.classify_batch = classify
+
+
+def mesh_runs(mesh, runs: list) -> dict:
+    """Rank function of phases 20 and 21 (run in each spawned rank): every
+    run (label, code, weight, p, BPConfig kwargs, chunks, batch size, seed,
+    relay retries) through ``run_monte_carlo(mesh=)``, with every launch
+    count set to 0 just before it and read just after, the collectives and
+    host syncs it made, and the syndrome audit of its graph-sharded chunks
+    (``auditing_syndromes``; [0, 0] on a data-only mesh).  One chunk per
+    group, so each chunk's K8 launches and lane-iterations are recorded."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": (mesh.rank(DATA_AXIS), mesh.rank(GRAPH_AXIS)),
+           "backend": mesh.backend, "device": str(mesh.device)}
+    graphs = {}
+    for label, params, weight, p_err, cfg, chunks, batch, seed, relay in runs:
+        if params not in graphs:
+            g = CodeGraphs.build(construct_code(*params))
+            graphs[params] = (g, make_rank_basis_test(g.code, mesh.device))
+        g, logical = graphs[params]
+        reset_counts()
+        before = dict(mesh.collectives)
+        result, per_chunk = [], []
+        t0 = time.perf_counter()
+        with auditing_syndromes(g, mesh.device) as audit:
+            syncs = count_syncs(lambda: result.append(run_monte_carlo(
+                g, weight, chunks * batch, p_err, BPConfig(**cfg), seed=seed,
+                batch_size=batch, mesh=mesh, relay_retries=relay,
+                i_minus_p=logical, device=mesh.device,
+                progress=lambda c, nc, cnt, it: per_chunk.append(
+                    (it, sharded_step_cuda.launches)))))
+        torch.cuda.synchronize()
+        counters, lane_iters = result[0]
+        out[label] = dict(counters=counters, lane_iters=lane_iters,
+                          seconds=time.perf_counter() - t0,
+                          launches=read_counts(), syncs=syncs,
+                          per_chunk=per_chunk, audit=audit.tolist(),
+                          collectives={k: mesh.collectives[k] - before[k]
+                                       for k in before})
+    return out
+
+
+def run_world(label: str, num_data: int, num_graph: int, runs: list) -> list:
+    """Spawn a (num_data x num_graph) world on the card, run ``runs`` in
+    every rank, print each run's line, and check that all ranks agree on
+    the counters and, graph-sharded, that every rank audited its lanes'
+    syndromes and found no violation.  Returns the ranks' results."""
+    torch.cuda.empty_cache()
+    # counting syncs in a rank also makes gloo's staging thread log each of
+    # its own: keep the ranks' C++ log to errors
+    os.environ["TORCH_CPP_LOG_LEVEL"] = "ERROR"
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_runs, num_data, num_graph, device_type="cuda",
+                  args=(runs,), timeout=900)
+    say("mesh", world=f"{num_data}x{num_graph}", ranks=len(ranks),
+        backend=ranks[0]["backend"], device=ranks[0]["device"],
+        seconds=f"{time.perf_counter() - t0:.2f}",
+        note="ranks share one card; gloo stages collectives through the host")
+    for run in runs:
+        name = run[0]
+        first = ranks[0][name]
+        tested = int(first["counters"][C_TESTED])
+        check(all(np.array_equal(r[name]["counters"], first["counters"])
+                  for r in ranks), f"{label} {name}: ranks disagree")
+        check(tested == run[5] * run[6], f"{label} {name}: tested {tested}")
+        audits = [r[name]["audit"] for r in ranks]
+        check(all((a[0] > 0) == (num_graph > 1) and a[1] == 0 for a in audits),
+              f"{label} {name}: syndrome audit {audits}")
+        say("main", path=f"{label} {name}", samples=tested,
+            seconds=f"{max(r[name]['seconds'] for r in ranks):.4f}",
+            corrected_fraction=f"{first['counters'][C_CORRECTED] / tested:.6f}",
+            counters=json.dumps([int(c) for c in first["counters"]]),
+            lane_iters=first["lane_iters"],
+            launches=json.dumps([{k: v for k, v in r[name]["launches"].items()
+                                  if v} for r in ranks]),
+            collectives=json.dumps([r[name]["collectives"] for r in ranks]),
+            host_syncs_per_chunk=json.dumps([r[name]["syncs"] / run[5]
+                                             for r in ranks]),
+            syndrome_audit=json.dumps(audits))
+    return ranks
+
+
+def mesh_phases() -> int:
+    """Phases 20 and 21; returns K8's launches in the graph-sharded
+    min-sum run (all ranks)."""
+    batch = SHARDED_BATCH * SHARDED_DATA
+    sharded = [(name, SHARDED_CODE, SHARDED_WEIGHT, SHARDED_P,
+                dict(max_iters=SHARDED_ITERS, algorithm=algorithm),
+                SHARDED_CHUNKS, batch, 1, 0)
+               for name, algorithm in (("min-sum [[5210,521]]", "min-sum"),
+                                       ("layered [[5210,521]]",
+                                        "layered-min-sum"),
+                                       ("sum-product [[5210,521]]",
+                                        "sum-product"))]
+    relay_cfg = dict(max_iters=MAX_ITERS, algorithm="min-sum")
+    relay = [[("min-sum W=40", HEADLINE_CODE, RELAY_WEIGHT, RELAY_P, relay_cfg,
+               chunks, BATCH, 4, 0),
+              (f"relay W=40 retries={RELAY_RETRIES}", HEADLINE_CODE,
+               RELAY_WEIGHT, RELAY_P, relay_cfg, chunks, BATCH, 4,
+               RELAY_RETRIES)]
+             for chunks in (SHARDED_RELAY_REFERENCE_CHUNKS,
+                            SHARDED_RELAY_CHUNKS)]
+    headline = ("sum-product headline", HEADLINE_CODE, WEIGHT, P_ERR,
+                dict(max_iters=MAX_ITERS, check_every=10), CHUNKS, BATCH, 1, 0)
+
+    # 20. (data=2): the data-parallel runs, the reference counters ----------
+    data = run_world("data=2", SHARDED_DATA, 1, [headline, *sharded, *relay[0]])
+    for r in data:
+        for name, kernel, per_chunk in (
+                (headline[0], "bp_sum_product", 2 * CHUNKS),
+                (sharded[0][0], "min_sum", 2 * SHARDED_CHUNKS),
+                (sharded[1][0], "layered_min_sum", 2 * SHARDED_CHUNKS),
+                (sharded[2][0], "bp_sum_product", 2 * SHARDED_CHUNKS)):
+            want = {k: 0 for k in r[name]["launches"]}
+            want[kernel] = per_chunk
+            check(r[name]["launches"] == want,
+                  f"data=2 {name}: launches {r[name]['launches']}")
+            check(r[name]["collectives"] == {"all_gather": 0,
+                                             "all_reduce": per_chunk // 2},
+                  f"data=2 {name}: collectives {r[name]['collectives']}")
+    gate_headline("data=2 sum-product headline",
+                  data[0][headline[0]]["counters"], two_sided=True)
+    gate_two_proportion("data=2 min-sum [[5210,521]]",
+                        data[0][sharded[0][0]]["counters"],
+                        SHARDED_MIN_SUM_CORRECTED)
+
+    # 20. (data=2 x graph=2): the same runs graph-sharded ------------------
+    graph = run_world("data=2 x graph=2", SHARDED_DATA, SHARDED_GRAPH, sharded)
+    for name in (sharded[0][0], sharded[1][0]):
+        check(np.array_equal(graph[0][name]["counters"],
+                             data[0][name]["counters"]),
+              f"{name}: graph-sharded counters differ from the data-only ones")
+    say("gate", path="graph-sharded min-sum and layered",
+        counters_equal_data_only=True)
+    sp = sharded[2][0]
+    z = two_proportion_z(int(graph[0][sp]["counters"][C_CORRECTED]),
+                         int(graph[0][sp]["counters"][C_TESTED]),
+                         int(data[0][sp]["counters"][C_CORRECTED]),
+                         int(data[0][sp]["counters"][C_TESTED]))
+    say("gate", path="graph-sharded sum-product vs data-only", z=f"{z:+.2f}")
+    check(abs(z) < 4, f"graph-sharded sum-product off the data-only run (z={z})")
+    ms = sharded[0][0]
+    k8 = {r["rank"]: r[ms]["launches"]["sharded_min_sum_step"] for r in graph}
+    chunk_k8 = {r["rank"]: np.diff([0] + [k for _, k in r[ms]["per_chunk"]])
+                for r in graph}
+    for r in graph:
+        counts = r[ms]["launches"]
+        check(counts["min_sum"] == counts["min_sum_wide"] == 0
+              and counts["sharded_min_sum_step"] > 0,
+              f"graph-sharded min-sum launches {counts}")
+        check(np.array_equal(chunk_k8[r["rank"]], chunk_k8[(r["rank"][0], 0)]),
+              f"graph ranks of data shard {r['rank'][0]} out of lockstep: "
+              f"{chunk_k8}")
+        for name in (sharded[1][0], sp):
+            check(not any(r[name]["launches"].values()),
+                  f"graph-sharded {name} launched {r[name]['launches']}")
+    # per chunk: the data shards' K8 launches x their lanes are the chunk's
+    # lane-iterations, each X and Z loop iteration one launch
+    for c, (lane_iters, _) in enumerate(graph[0][ms]["per_chunk"]):
+        launched = [int(chunk_k8[(d, 0)][c]) for d in range(SHARDED_DATA)]
+        check(sum(launched) * SHARDED_BATCH == lane_iters,
+              f"chunk {c}: K8 launches {launched} x {SHARDED_BATCH} lanes != "
+              f"{lane_iters} lane-iterations")
+    say("mesh", path=f"graph-sharded {ms}", k8_launches_per_chunk=json.dumps(
+        {str(k): v.tolist() for k, v in chunk_k8.items()}))
+    for r in graph:
+        c = r[ms]["collectives"]
+        iters = k8[r["rank"]]
+        say("mesh", path=f"graph-sharded {ms}", rank=json.dumps(r["rank"]),
+            k8_launches=iters,
+            all_gathers_per_iteration=f"{(c['all_gather'] - 2 * SHARDED_CHUNKS) / iters:.4f}",
+            all_reduces_per_iteration=f"{c['all_reduce'] / iters:.4f}",
+            host_syncs_per_chunk=r[ms]["syncs"] / SHARDED_CHUNKS)
+        check(c["all_gather"] == iters + 2 * SHARDED_CHUNKS,
+              f"graph-sharded min-sum: {c['all_gather']} all_gathers for "
+              f"{iters} iterations")
+        check(c["all_reduce"] <= 2 * iters, f"all_reduces {c}")
+
+    # 21. relay, (data=1 x graph=2) --------------------------------------------
+    relayed = run_world("data=1 x graph=2", 1, SHARDED_GRAPH, relay[1])
+    rates = []
+    for world, runs in ((data, relay[0]), (relayed, relay[1])):
+        fail0 = bp_failures(world[0][runs[0][0]]["counters"])
+        fail1 = bp_failures(world[0][runs[1][0]]["counters"])
+        rates.append((fail0 - fail1, fail0))
+    z = two_proportion_z(*rates[1], *rates[0])
+    # the smallest repair-rate gap that |z| < 4 rejects at these counts
+    pool = (rates[0][0] + rates[1][0]) / (rates[0][1] + rates[1][1])
+    gap = 4 * math.sqrt(pool * (1 - pool) * (1 / rates[0][1] + 1 / rates[1][1]))
+    say("relay", world="data=1 x graph=2", bp_failures=rates[1][1],
+        repaired=rates[1][0], repair_rate=f"{rates[1][0] / rates[1][1]:.4f}",
+        data_parallel_repair_rate=f"{rates[0][0] / rates[0][1]:.4f}",
+        data_parallel_bp_failures=rates[0][1], z_repair=f"{z:+.2f}",
+        detectable_gap=f"{gap:.4f}",
+        k8_launches=json.dumps([r[relay[1][1][0]]["launches"][
+            "sharded_min_sum_step"] for r in relayed]))
+    check(abs(z) < 4, f"graph-sharded relay repair rate off (z={z})")
+    check(rates[1][0] > 0, "graph-sharded relay repaired no lane")
+    return sum(k8.values())
+
+
 def main() -> int:
+    started = time.perf_counter()
     # 1. device -------------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1118,8 +1503,15 @@ def main() -> int:
 
     osd_times = osd_phases(device, g610, gross, bb756, logical_610,
                            logical_gross, worst, times, launches)
+
+    # 18.-21. K8 and the multi-device engines -----------------------------------
+    g5210 = CodeGraphs.build(construct_code(*SHARDED_CODE))
+    worst["sharded_min_sum_step"] = check_k8(device, g610, g5210, llr)
+    k8_times = time_k8(device, g5210, llr)
+    launches["sharded_min_sum_step"] = mesh_phases()
     check("jax" not in sys.modules, "the port imported jax")
 
+    say("total", seconds=f"{time.perf_counter() - started:.2f}")
     print(smi, flush=True)
     # name -> (source, TPU kernel, timed graph, iterations, algorithm, output
     # rows): the shapes of phases 4, 7 and 11
@@ -1166,6 +1558,22 @@ def main() -> int:
         "bound_ms": osd_times["Z"][2],
         "bound_by": osd_times["Z"][3],
         # no PyTorch call does GF(2) elimination
+        "library_ms": None,
+    })
+    # at the main path's shape; phase 19 prints the other batches beside it
+    k_ms, p_ms, bound_ms, bound_by = k8_times[SHARDED_BATCH]
+    rows.append({
+        "name": "sharded_min_sum_step",
+        "route": "cuda",
+        "source": "qec_ldpc_tpu_torch/csrc/sharded_min_sum_step.cu",
+        "replaces": "qec_ldpc_tpu/kernels/sharded_step_pallas.py:188",
+        "launches": launches["sharded_min_sum_step"],
+        "max_abs_err": worst["sharded_min_sum_step"],
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        # no single PyTorch call computes a min-sum iteration
         "library_ms": None,
     })
     print(json.dumps({"kernels": rows}), flush=True)

@@ -4,7 +4,11 @@
     python3 profile_cells.py [--cells headline,gross-min-sum,...]
 
 Each cell is one ``run_monte_carlo`` workload of ``chip_smoke.py`` (the
-``osd`` cell: ``run_monte_carlo_osd``), defined in ``workloads.py``.  For
+``osd`` cell: ``run_monte_carlo_osd``), defined in ``workloads.py``, except
+``k8``: a loop of ``K8_STEPS`` graph-sharded min-sum steps (K8) of shard 0 of
+2 of the [[5210,521]] X graph at batch 1024 (the graph-sharded cell's lanes
+per rank) in one process, with no mesh, each step's partials fed back as the
+other shard's.  For
 each: a warm-up run, ``RUNS`` (3) unprofiled runs timed on the host clock
 (wall per chunk, samples/s), then one run under ``torch.profiler`` with CPU
 and CUDA activities.  From the profiled run it reports the device busy time
@@ -82,6 +86,7 @@ CELLS = {
                     ("lifted_min_sum_kernel",)),
     "osd": ("610", "weight", OSD_WEIGHT, OSD_P, MIN_SUM, OSD_CHUNKS, 0,
             ("min_sum_kernel", "osd0_kernel"), OSD_BATCH, OSD_LAM),
+    "k8": ("5210",),
 }
 
 
@@ -94,6 +99,86 @@ def build_graphs(code: str) -> CodeGraphs:
     from qec_ldpc_tpu_torch.codes import known_bicycle_code
 
     return known_bicycle_code(GROSS).build_graphs()
+
+
+def device_profile(run, kernels: tuple):
+    """A warm-up, ``RUNS`` timed runs of ``run()``, then one under
+    ``torch.profiler``.  Returns (wall seconds of the timed runs, device busy
+    us and device operations of the profiled run, per-kernel share, ms per
+    launch and launches, what the profiled run returned)."""
+    run()  # warm-up
+    walls = []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        result = run()
+    # device operations only: a CPU op's self device time repeats its kernels'
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    shares = {}
+    for kernel in kernels:
+        mine = [e for e in events if kernel in e.key]
+        us = sum(e.self_device_time_total for e in mine)
+        launches = sum(e.count for e in mine)
+        shares[kernel] = {
+            "share_of_device": us / busy_us if busy_us else None,
+            "ms_per_launch": 1e-3 * us / launches if launches else None,
+            "launches": launches}
+    return walls, busy_us, sum(e.count for e in events), shares, result
+
+
+def profile_k8(device) -> dict:
+    """The ``k8`` cell: K8_STEPS steps of shard 0 of 2 of the [[5210,521]]
+    X graph at SHARDED_BATCH (imported here: earlier trees of the port lack
+    K8)."""
+    from qec_ldpc_tpu_torch.decoder.min_sum import prior_llr
+    from qec_ldpc_tpu_torch.kernels import sharded_step_cuda
+    from qec_ldpc_tpu_torch.parallel.graph_sharded import ShardRouter
+    from workloads import (K8_STEPS, SHARDED_BATCH, SHARDED_CODE,
+                           SHARDED_GRAPH, SHARDED_P)
+
+    graph = CodeGraphs.build(construct_code(*SHARDED_CODE)).x
+    router = ShardRouter(graph, SHARDED_GRAPH, 0)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(19)
+    checks = router.B * router.P
+    v0 = torch.randn((router.Lc * checks, SHARDED_BATCH), generator=gen,
+                     device=device) * 4
+    syn = torch.where(torch.rand((checks, SHARDED_BATCH), generator=gen,
+                                 device=device) < 0.3, -1.0, 1.0)
+    done = torch.zeros(SHARDED_BATCH, dtype=torch.bool, device=device)
+    llr = prior_llr(2.0 / 3.0 * SHARDED_P)
+    part0 = sharded_step_cuda.local_partials(v0, router.Lc)
+
+    def run():
+        v, part = v0, part0
+        for _ in range(K8_STEPS):
+            v, part = sharded_step_cuda.sharded_min_sum_step(
+                router, llr, False, syn, part, done, v, 0.75)
+        torch.cuda.synchronize()
+
+    walls, busy_us, ops, shares, _ = device_profile(
+        run, ("sharded_step_kernel",))
+    wall_ms = 1e3 * min(walls) / K8_STEPS
+    busy_ms = 1e-3 * busy_us / K8_STEPS
+    k8 = shares["sharded_step_kernel"]
+    return {
+        "cell": "k8",
+        "steps": K8_STEPS,
+        "batch": SHARDED_BATCH,
+        "wall_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "decode_kernel": "sharded_step_kernel",
+        "decode_share_of_device": k8["share_of_device"],
+        "decode_ms_per_launch": k8["ms_per_launch"],
+        "decode_launches": k8["launches"],
+        "device_ops_per_step": ops / K8_STEPS,
+    }
 
 
 def profile_cell(name: str, graphs, logical, device) -> dict:
@@ -117,29 +202,7 @@ def profile_cell(name: str, graphs, logical, device) -> dict:
         torch.cuda.synchronize()
         return counters
 
-    run()  # warm-up
-    walls = []
-    for _ in range(RUNS):
-        t0 = time.perf_counter()
-        counters = run()
-        walls.append(time.perf_counter() - t0)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        run()
-    # device operations only: a CPU op's self device time repeats its kernels'
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in events)
-    ops = sum(e.count for e in events)
-    shares = {}
-    for kernel in kernels:
-        mine = [e for e in events if kernel in e.key]
-        us = sum(e.self_device_time_total for e in mine)
-        launches = sum(e.count for e in mine)
-        shares[kernel] = {
-            "share_of_device": us / busy_us if busy_us else None,
-            "ms_per_launch": 1e-3 * us / launches if launches else None,
-            "launches": launches}
+    walls, busy_us, ops, shares, counters = device_profile(run, kernels)
     decode = shares[kernels[0]]
     wall_ms = 1e3 * min(walls) / chunks
     busy_ms = 1e-3 * busy_us / chunks
@@ -170,6 +233,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     graphs, logical = {}, {}
     for name in args.cells.split(","):
+        if name == "k8":
+            print(json.dumps(profile_k8(device)), flush=True)
+            continue
         code = CELLS[name][0]
         if code not in graphs:
             graphs[code] = build_graphs(code)

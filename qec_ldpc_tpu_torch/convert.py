@@ -89,3 +89,19 @@ def float32_from_numpy(a, device: torch.device | str) -> torch.Tensor:
     """A damping or gamma array (numpy, or anything ``np.asarray`` reads)
     -> a contiguous float32 tensor on ``device``."""
     return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+
+
+def lanes_to_rows(a, P: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """A K8 operand in the TPU kernel's layout, (blocks, batch, P padded to
+    128) (numpy, or anything ``np.asarray`` reads) -> the port's row layout
+    (blocks*P, batch) float32 on ``device``; the pad lanes are dropped."""
+    a = np.asarray(a, dtype=np.float32)[:, :, :P]
+    return torch.tensor(np.ascontiguousarray(
+        a.transpose(0, 2, 1).reshape(-1, a.shape[1])), device=device)
+
+
+def done_to_lanes(done: torch.Tensor) -> np.ndarray:
+    """A (batch,) bool done mask -> the TPU kernel's (batch, 128) float32
+    mask (column 0 read)."""
+    d = done.detach().cpu().numpy().astype(np.float32)
+    return np.repeat(d[:, None], 128, axis=1)

@@ -94,6 +94,16 @@ class DecodeResult:
     soft_z: torch.Tensor | None = None
 
 
+def error_code(sfx: torch.Tensor, sfz: torch.Tensor, cfx: torch.Tensor,
+               cfz: torch.Tensor) -> torch.Tensor:
+    """(batch,) int32 ErrorCode bits from the per-lane syndrome-fail and
+    convergence-fail flags of the X and Z graphs."""
+    return (sfx.to(torch.int32) * SYNDROME_FAIL_X
+            + sfz.to(torch.int32) * SYNDROME_FAIL_Z
+            + cfx.to(torch.int32) * CONVERGENCE_FAIL_X
+            + cfz.to(torch.int32) * CONVERGENCE_FAIL_Z)
+
+
 def decide(graph: CirculantGraph | LiftedGraph, v: torch.Tensor,
            syndrome: torch.Tensor, cfg: BPConfig):
     """Decisions and failure flags from final messages ``v`` of
@@ -203,11 +213,8 @@ def decode_batch(
                                                      cfg)
         out.append((*flags, lane_iters.max(), lane_iters.sum(), soft))
     (dx, cfx, sfx, itx, isx, softx), (dz, cfz, sfz, itz, isz, softz) = out
-    code = (sfx.to(torch.int32) * SYNDROME_FAIL_X
-            + sfz.to(torch.int32) * SYNDROME_FAIL_Z
-            + cfx.to(torch.int32) * CONVERGENCE_FAIL_X
-            + cfz.to(torch.int32) * CONVERGENCE_FAIL_Z)
-    return DecodeResult(decisions_x=dx, decisions_z=dz, error_code=code,
+    return DecodeResult(decisions_x=dx, decisions_z=dz,
+                        error_code=error_code(sfx, sfz, cfx, cfz),
                         iters_x=itx, iters_z=itz,
                         iter_samples_x=isx, iter_samples_z=isz,
                         soft_x=softx, soft_z=softz)

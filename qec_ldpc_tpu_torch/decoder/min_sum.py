@@ -37,7 +37,7 @@ import torch
 
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
 from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
-from qec_ldpc_tpu_torch.decoder.sum_product import fma_f32
+from qec_ldpc_tpu_torch.decoder.sum_product import exclusive_scans, fma_f32
 
 
 def prior_llr(prior: float) -> float:
@@ -61,41 +61,21 @@ def f32(x: float) -> float:
 
 def _loo_sums(terms: list[torch.Tensor]) -> list[torch.Tensor]:
     """Leave-one-out sums of a short list (exclusive prefix + suffix)."""
-    m = len(terms)
-    zeros = torch.zeros_like(terms[0])
-    prefix = [zeros] * m
-    for i in range(1, m):
-        prefix[i] = prefix[i - 1] + terms[i - 1]
-    suffix = [zeros] * m
-    for i in range(m - 2, -1, -1):
-        suffix[i] = suffix[i + 1] + terms[i + 1]
-    return [prefix[i] + suffix[i] for i in range(m)]
+    prefix, suffix = exclusive_scans(terms, torch.add, torch.zeros_like(terms[0]))
+    return [p + s for p, s in zip(prefix, suffix)]
 
 
 def _loo_mins(terms: list[torch.Tensor]) -> list[torch.Tensor]:
     """Leave-one-out minima of a short list (NaN propagates, as in JAX)."""
-    m = len(terms)
-    big = torch.full_like(terms[0], math.inf)
-    prefix = [big] * m
-    for i in range(1, m):
-        prefix[i] = torch.minimum(prefix[i - 1], terms[i - 1])
-    suffix = [big] * m
-    for i in range(m - 2, -1, -1):
-        suffix[i] = torch.minimum(suffix[i + 1], terms[i + 1])
-    return [torch.minimum(prefix[i], suffix[i]) for i in range(m)]
+    prefix, suffix = exclusive_scans(terms, torch.minimum,
+                                     torch.full_like(terms[0], math.inf))
+    return [torch.minimum(p, s) for p, s in zip(prefix, suffix)]
 
 
 def _loo_sign_products(signs: list[torch.Tensor]) -> list[torch.Tensor]:
     """Leave-one-out products of +-1 sign tensors."""
-    m = len(signs)
-    ones = torch.ones_like(signs[0])
-    prefix = [ones] * m
-    for i in range(1, m):
-        prefix[i] = prefix[i - 1] * signs[i - 1]
-    suffix = [ones] * m
-    for i in range(m - 2, -1, -1):
-        suffix[i] = suffix[i + 1] * signs[i + 1]
-    return [prefix[i] * suffix[i] for i in range(m)]
+    prefix, suffix = exclusive_scans(signs, torch.mul, torch.ones_like(signs[0]))
+    return [p * s for p, s in zip(prefix, suffix)]
 
 
 def _sign(t: torch.Tensor) -> torch.Tensor:

@@ -79,18 +79,26 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return s.float()
 
 
+def exclusive_scans(terms: list[torch.Tensor], combine, identity: torch.Tensor
+                    ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """Exclusive prefix and suffix scans of a short list under ``combine``:
+    ``prefix[i] = combine(prefix[i-1], terms[i-1])`` from ``identity``, and
+    ``suffix[i] = combine(suffix[i+1], terms[i+1])`` downwards — the JAX
+    versions' association order for every leave-one-out reduction."""
+    m = len(terms)
+    prefix, suffix = [identity] * m, [identity] * m
+    for i in range(1, m):
+        prefix[i] = combine(prefix[i - 1], terms[i - 1])
+    for i in range(m - 2, -1, -1):
+        suffix[i] = combine(suffix[i + 1], terms[i + 1])
+    return prefix, suffix
+
+
 def _loo_products(terms: list[torch.Tensor]) -> list[torch.Tensor]:
     """Leave-one-out products of a short list by exclusive prefix and
     suffix products, in the JAX version's association order."""
-    m = len(terms)
-    ones = torch.ones_like(terms[0])
-    prefix = [ones] * m
-    for i in range(1, m):
-        prefix[i] = prefix[i - 1] * terms[i - 1]
-    suffix = [ones] * m
-    for i in range(m - 2, -1, -1):
-        suffix[i] = suffix[i + 1] * terms[i + 1]
-    return [prefix[i] * suffix[i] for i in range(m)]
+    prefix, suffix = exclusive_scans(terms, torch.mul, torch.ones_like(terms[0]))
+    return [p * s for p, s in zip(prefix, suffix)]
 
 
 def _not_converged_mask(v: torch.Tensor, low: float, high: float) -> torch.Tensor:

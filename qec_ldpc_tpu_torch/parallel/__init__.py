@@ -1,8 +1,20 @@
-"""Monte-Carlo drivers (PyTorch; single device), the OSD quality mode
-included."""
+"""Monte-Carlo drivers (PyTorch), the OSD quality mode included, and the
+multi-device engines: the (data, graph) mesh, data-parallel runs and the
+graph-sharded circulant engines."""
 
+from qec_ldpc_tpu_torch.parallel.graph_sharded import make_graph_sharded_decoder
+from qec_ldpc_tpu_torch.parallel.mc_graph import make_graph_sharded_chunk
+from qec_ldpc_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    GRAPH_AXIS,
+    Mesh,
+    make_mesh,
+    maybe_init_distributed,
+    spawn,
+)
 from qec_ldpc_tpu_torch.parallel.montecarlo import (
     effective_steps_per_call,
+    make_sharded_chunk,
     run_monte_carlo,
     run_monte_carlo_osd,
 )

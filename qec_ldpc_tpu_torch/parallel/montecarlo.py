@@ -1,8 +1,8 @@
-"""Single-device Monte-Carlo estimation of logical-error statistics (PyTorch).
+"""Monte-Carlo estimation of logical-error statistics (PyTorch).
 
-The port of ``qec_ldpc_tpu/parallel/montecarlo.py::run_monte_carlo`` without
-a mesh, for circulant and lifted codes alike.  Each chunk runs the whole
-pipeline on one device:
+The port of ``qec_ldpc_tpu/parallel/montecarlo.py::run_monte_carlo``, for
+circulant and lifted codes alike.  Each chunk runs the whole pipeline on
+one device:
 
   sample errors -> syndromes -> X/Z decode [-> relay retries] -> classify
   -> counters.
@@ -13,6 +13,15 @@ from (seed, global chunk id) — one for the errors and, with
 statistics do not depend on how chunks are grouped.  Counters stay on the
 device for a whole group of ``steps_per_call`` chunks; the host reads them
 once per group.
+
+With a ``mesh`` (parallel/mesh.py) every rank runs the same call.  On a
+data-only mesh (:func:`make_sharded_chunk`) each rank decodes
+``batch_size // num_data`` lanes of every chunk from generators seeded by
+(seed, chunk, data index), the counterpart of JAX's
+``fold_in(fold_in(key, c), d)``; a graph axis > 1 hands the decode to the
+graph-sharded engines (parallel/mc_graph.py) on the same samples.  The
+counters and lane-iterations are summed over the data axis once per group,
+and every rank returns the same totals.
 
 :func:`run_monte_carlo_osd` is the quality mode (the port of JAX's
 function of that name, single device): the same samples, then OSD
@@ -43,6 +52,7 @@ from qec_ldpc_tpu_torch.decoder.decode import (
 from qec_ldpc_tpu_torch.decoder.osd import CSSPostprocessor, splice
 from qec_ldpc_tpu_torch.decoder.relay import relay_decode_batch
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig
+from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, Mesh
 from qec_ldpc_tpu_torch.sampling.classify import (
     NUM_COUNTERS,
     RankBasisTest,
@@ -68,19 +78,21 @@ def _generator(entropy: list[int], device: torch.device | str) -> torch.Generato
     return g
 
 
-def chunk_generator(seed: int, chunk: int,
-                    device: torch.device | str) -> torch.Generator:
+def chunk_generator(seed: int, chunk: int, device: torch.device | str,
+                    *shard: int) -> torch.Generator:
     """The error generator of global chunk ``chunk``: a function of
-    (seed, chunk) alone."""
-    return _generator([seed, chunk], device)
+    (seed, chunk) alone, and on a mesh of the rank's data index
+    (``shard``)."""
+    return _generator([seed, chunk, *shard], device)
 
 
-def relay_generator(seed: int, chunk: int,
-                    device: torch.device | str) -> torch.Generator:
+def relay_generator(seed: int, chunk: int, device: torch.device | str,
+                    *shard: int) -> torch.Generator:
     """The relay (damping-draw) generator of global chunk ``chunk``: a
-    function of (seed, chunk, RELAY_STREAM) alone, independent of the
-    error stream."""
-    return _generator([seed, chunk, RELAY_STREAM], device)
+    function of (seed, chunk, RELAY_STREAM) and the rank's mesh indices
+    (``shard``: data index, and graph index on a graph-sharded mesh) alone,
+    independent of the error stream."""
+    return _generator([seed, chunk, RELAY_STREAM, *shard], device)
 
 
 def _resolve_logical_test(graphs: CodeGraphs, i_minus_p, device):
@@ -95,13 +107,11 @@ def _resolve_logical_test(graphs: CodeGraphs, i_minus_p, device):
     return torch.as_tensor(np.asarray(i_minus_p), device=device)
 
 
-def _sample_and_decode(graphs: CodeGraphs, generator: torch.Generator,
-                       weight: int, error_probability: float, cfg: BPConfig,
-                       batch: int, error_model: str, relay_retries: int = 0,
-                       relay_gen: torch.Generator | None = None):
-    """Sample errors -> syndromes -> decode (relay-repaired when
-    ``relay_retries > 0``, drawing its gammas from ``relay_gen``).  Returns
-    (xe, ze, sx, sz, res) with errors as int32."""
+def sample_syndromes(graphs: CodeGraphs, generator: torch.Generator,
+                     weight: int, error_probability: float, batch: int,
+                     error_model: str):
+    """Sample errors -> syndromes.  Returns (xe, ze, sx, sz), errors as
+    int32."""
     n = graphs.code.n
     if error_model == "weight":
         xe, ze = sample_weight_w_errors(generator, n, weight, batch)
@@ -112,8 +122,19 @@ def _sample_and_decode(graphs: CodeGraphs, generator: torch.Generator,
         raise ValueError(f"unknown error model {error_model!r}")
     xe_i = xe.to(torch.int32)
     ze_i = ze.to(torch.int32)
-    sx = graphs.x.syndrome(xe_i)
-    sz = graphs.z.syndrome(ze_i)
+    return xe_i, ze_i, graphs.x.syndrome(xe_i), graphs.z.syndrome(ze_i)
+
+
+def _sample_and_decode(graphs: CodeGraphs, generator: torch.Generator,
+                       weight: int, error_probability: float, cfg: BPConfig,
+                       batch: int, error_model: str, relay_retries: int = 0,
+                       relay_gen: torch.Generator | None = None):
+    """Sample errors -> syndromes -> decode (relay-repaired when
+    ``relay_retries > 0``, drawing its gammas from ``relay_gen``).  Returns
+    (xe, ze, sx, sz, res) with errors as int32."""
+    xe_i, ze_i, sx, sz = sample_syndromes(graphs, generator, weight,
+                                          error_probability, batch,
+                                          error_model)
     if relay_retries > 0:
         res, _, _ = relay_decode_batch(graphs, sx, sz, error_probability,
                                        relay_gen, cfg, retries=relay_retries)
@@ -153,10 +174,68 @@ def _effective_spc(num_chunks: int, steps_per_call: int) -> int:
     return steps_per_call
 
 
+def _chunk_samples(batch_size: int, mesh: Mesh | None) -> int:
+    """Samples per chunk: on a mesh, ``batch_size // num_data`` lanes on
+    each data shard."""
+    if mesh is None:
+        return batch_size
+    num_data = mesh.size(DATA_AXIS)
+    return max(1, batch_size // num_data) * num_data
+
+
 def effective_steps_per_call(count: int, batch_size: int,
-                             steps_per_call: int) -> int:
+                             steps_per_call: int, mesh: Mesh | None = None) -> int:
     """The steps_per_call :func:`run_monte_carlo` will actually use."""
-    return _effective_spc(-(-count // batch_size), steps_per_call)
+    return _effective_spc(-(-count // _chunk_samples(batch_size, mesh)),
+                          steps_per_call)
+
+
+def _chunk_group(graphs: CodeGraphs, i_minus_p, chunk_ids, seed: int,
+                 shard: tuple[int, ...], weight: int, error_probability: float,
+                 cfg: BPConfig, batch: int, error_model: str,
+                 relay_retries: int, device: torch.device):
+    """The chunks ``chunk_ids`` of one rank (mesh indices ``shard``, empty
+    without a mesh), summed on the device: (counters int64, iters[2]
+    int64)."""
+    counters = torch.zeros(NUM_COUNTERS, dtype=torch.int64, device=device)
+    iters = torch.zeros(2, dtype=torch.int64, device=device)
+    for c in chunk_ids:
+        cnt, its = _chunk_body(graphs, i_minus_p,
+                               chunk_generator(seed, c, device, *shard),
+                               weight, error_probability, cfg, batch,
+                               error_model, relay_retries,
+                               relay_generator(seed, c, device, *shard)
+                               if relay_retries > 0 else None)
+        counters += cnt
+        iters += its
+    return counters, iters
+
+
+def reduce_over_data(mesh: Mesh, counters: torch.Tensor, iters: torch.Tensor):
+    """Sum a group's (counters, iters) over the data axis: one all_reduce."""
+    total = mesh.all_reduce(torch.cat([counters.to(torch.int64),
+                                       iters.to(torch.int64)]),
+                            "sum", DATA_AXIS)
+    return total[:NUM_COUNTERS], total[NUM_COUNTERS:]
+
+
+def make_sharded_chunk(mesh: Mesh, graphs: CodeGraphs, weight: int,
+                       cfg: BPConfig, batch_per_device: int,
+                       error_model: str = "weight", relay_retries: int = 0):
+    """The data-parallel chunk group of this rank: the returned
+    ``chunk_fn(i_minus_p, seed, error_probability, chunk_ids, *, device)``
+    decodes ``batch_per_device`` lanes of each chunk from the generators of
+    (seed, chunk, data index) and returns the group's (counters, iters[2])
+    summed over the data axis, the same on every rank."""
+    didx = mesh.rank(DATA_AXIS)
+
+    def chunk_fn(i_minus_p, seed, error_probability, chunk_ids, *, device):
+        return reduce_over_data(mesh, *_chunk_group(
+            graphs, i_minus_p, chunk_ids, seed, (didx,), weight,
+            error_probability, cfg, batch_per_device, error_model,
+            relay_retries, torch.device(device)))
+
+    return chunk_fn
 
 
 def run_monte_carlo(
@@ -167,7 +246,7 @@ def run_monte_carlo(
     cfg: BPConfig,
     seed: int,
     batch_size: int = 1024,
-    mesh=None,
+    mesh: Mesh | None = None,
     error_model: str = "weight",
     progress: "callable | None" = None,
     start_chunk: int = 0,
@@ -191,36 +270,54 @@ def run_monte_carlo(
     many damped min-sum retries (decoder/relay.py); each retry reads one
     flag from the device.
 
+    ``mesh`` (parallel/mesh.py): every rank calls with the same arguments
+    and its own ``device``; a chunk is ``batch_size // num_data`` samples
+    per data shard, decoded data-parallel, or graph-sharded when the graph
+    axis is > 1 (circulant codes).  The group's counters are summed over
+    the data axis (one all_reduce) and every rank returns the totals.
+
     Returns (counters[NUM_COUNTERS] int64 numpy, total_bp_lane_iterations).
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh runs are not ported yet (ROADMAP "
-                                  "queue 1 item 12)")
     if weight_cap is not None:
         raise NotImplementedError("the dynamic-weight sampler is not ported "
                                   "yet (ROADMAP queue 1 item 11)")
     device = torch.device(device)
     i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
+    if mesh is None:
+        def run_group(ids):
+            return _chunk_group(graphs, i_minus_p, ids, seed, (), weight,
+                                error_probability, cfg, batch_size,
+                                error_model, relay_retries, device)
+    else:
+        if not isinstance(mesh, Mesh):
+            raise ValueError(f"mesh must be a parallel.mesh.Mesh, got "
+                             f"{type(mesh).__name__}")
+        per_dev = _chunk_samples(batch_size, mesh) // mesh.size(DATA_AXIS)
+        if mesh.size(GRAPH_AXIS) > 1:
+            from qec_ldpc_tpu_torch.parallel.mc_graph import (
+                make_graph_sharded_chunk,
+            )
+
+            chunk_fn = make_graph_sharded_chunk(mesh, graphs, weight, cfg,
+                                                per_dev, error_model,
+                                                relay_retries)
+        else:
+            chunk_fn = make_sharded_chunk(mesh, graphs, weight, cfg, per_dev,
+                                          error_model, relay_retries)
+
+        def run_group(ids):
+            return chunk_fn(i_minus_p, seed, error_probability, ids,
+                            device=device)
     totals = np.zeros(NUM_COUNTERS, dtype=np.int64)
     if init_counters is not None:
         totals += np.asarray(init_counters, dtype=np.int64)
     total_iters = 0
-    num_chunks = -(-count // batch_size)
+    num_chunks = -(-count // _chunk_samples(batch_size, mesh))
     steps_per_call = _effective_spc(num_chunks, steps_per_call)
     groups = [range(g, min(g + steps_per_call, num_chunks))
               for g in range(0, num_chunks, steps_per_call)]
     for gi in range(start_chunk, len(groups)):
-        counters = torch.zeros(NUM_COUNTERS, dtype=torch.int64, device=device)
-        iters = torch.zeros(2, dtype=torch.int64, device=device)
-        for c in groups[gi]:
-            cnt, its = _chunk_body(graphs, i_minus_p,
-                                   chunk_generator(seed, c, device), weight,
-                                   error_probability, cfg, batch_size,
-                                   error_model, relay_retries,
-                                   relay_generator(seed, c, device)
-                                   if relay_retries > 0 else None)
-            counters += cnt
-            iters += its
+        counters, iters = run_group(groups[gi])
         host = torch.cat([counters, iters]).cpu().numpy()  # one fetch
         group_counters = host[:NUM_COUNTERS]
         group_iters = int(host[NUM_COUNTERS:].sum())
@@ -364,12 +461,12 @@ def run_monte_carlo_osd(
     Returns (counters[NUM_COUNTERS] int64 numpy, total_bp_lane_iterations).
     """
     if mesh is not None:
-        raise NotImplementedError("mesh runs are not ported yet (ROADMAP "
-                                  "queue 1 item 12)")
+        raise NotImplementedError("mesh runs of the quality mode are not "
+                                  "ported yet (ROADMAP queue 1 item 12c)")
     if (torch.distributed.is_available() and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
         raise NotImplementedError("multi-process quality runs are not ported "
-                                  "yet (ROADMAP queue 1 item 12)")
+                                  "yet (ROADMAP queue 1 item 12c)")
     device = torch.device(device)
     post = None
     if lam >= 0:

@@ -12,7 +12,9 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "qec_ldpc_tpu_torch"
 PORT_FILES = sorted(p for p in PORT.rglob("*.py") if "_build" not in p.parts) + [
-    ROOT / "chip_smoke.py", ROOT / "profile_cells.py", ROOT / "workloads.py"]
+    ROOT / "chip_smoke.py", ROOT / "profile_cells.py", ROOT / "workloads.py",
+    # the rank functions that spawned processes import
+    ROOT / "tests" / "torch_mesh_workers.py"]
 
 IMPORT_JAX = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
 IMPORT_REFERENCE = re.compile(r"^\s*(?:import|from)\s+qec_ldpc_tpu(?!_torch)\b",
@@ -28,6 +30,11 @@ def test_import_leaves_jax_out():
             "import qec_ldpc_tpu_torch.kernels.lifted_min_sum_cuda\n"
             "import qec_ldpc_tpu_torch.kernels.lifted_bp_cuda\n"
             "import qec_ldpc_tpu_torch.kernels.osd0_cuda, qec_ldpc_tpu_torch.native\n"
+            "import qec_ldpc_tpu_torch.kernels.sharded_step_cuda\n"
+            "import qec_ldpc_tpu_torch.parallel.mesh, qec_ldpc_tpu_torch.parallel.graph_sharded\n"
+            "import qec_ldpc_tpu_torch.parallel.mc_graph\n"
+            "from qec_ldpc_tpu_torch.parallel import make_mesh, spawn, make_graph_sharded_decoder\n"
+            "import tests.torch_mesh_workers\n"
             "import qec_ldpc_tpu_torch.decoder.osd, qec_ldpc_tpu_torch.decoder.osd_device\n"
             "from qec_ldpc_tpu_torch.parallel import run_monte_carlo_osd\n"
             "import qec_ldpc_tpu_torch.sampling, qec_ldpc_tpu_torch.parallel\n"
@@ -55,3 +62,12 @@ def test_scan_covers_the_osd_modules():
             "qec_ldpc_tpu_torch/decoder/osd.py",
             "qec_ldpc_tpu_torch/decoder/osd_device.py",
             "qec_ldpc_tpu_torch/kernels/osd0_cuda.py"} <= names
+
+
+def test_scan_covers_the_mesh_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"qec_ldpc_tpu_torch/parallel/mesh.py",
+            "qec_ldpc_tpu_torch/parallel/graph_sharded.py",
+            "qec_ldpc_tpu_torch/parallel/mc_graph.py",
+            "qec_ldpc_tpu_torch/kernels/sharded_step_cuda.py",
+            "tests/torch_mesh_workers.py"} <= names

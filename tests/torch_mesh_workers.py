@@ -1,0 +1,150 @@
+"""Rank functions of the port's mesh tests (``test_torch_mesh.py``,
+``test_torch_graph_sharded.py``, ``test_torch_mc_graph.py``).
+
+``qec_ldpc_tpu_torch.parallel.mesh.spawn`` runs each in a fresh process per
+rank, which imports this module: it imports neither JAX nor the JAX
+package, so a spawned rank never loads them.  Each function runs every case
+of its test module in one world and returns NumPy arrays and Python values.
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from qec_ldpc_tpu_torch import construct_code
+from qec_ldpc_tpu_torch.codes import toric_code
+from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs
+from qec_ldpc_tpu_torch.parallel.graph_sharded import make_graph_sharded_decoder
+from qec_ldpc_tpu_torch.parallel.mc_graph import make_graph_sharded_chunk
+from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, make_mesh
+from qec_ldpc_tpu_torch.parallel.montecarlo import (
+    effective_steps_per_call,
+    make_sharded_chunk,
+    run_monte_carlo,
+)
+from qec_ldpc_tpu_torch.sampling import make_rank_basis_test
+
+
+def _shard(mesh, a: np.ndarray) -> torch.Tensor:
+    """This rank's data shard of a (rows, batch) array."""
+    d, nd = mesh.rank(DATA_AXIS), mesh.size(DATA_AXIS)
+    bt = a.shape[1] // nd
+    return torch.from_numpy(np.ascontiguousarray(a[:, d * bt:(d + 1) * bt]))
+
+
+def graph_sharded_cases(mesh, cases: dict, p: float) -> dict:
+    """Decode each case ``name -> (code params, BPConfig kwargs, sx, sz)``
+    with ``make_graph_sharded_decoder``: the outputs and the collectives it
+    issued, or the exception's type and message."""
+    torch.set_num_threads(1)
+    out = {"rank": (mesh.rank(DATA_AXIS), mesh.rank(GRAPH_AXIS))}
+    for name, (params, cfg, sx, sz) in cases.items():
+        graphs = CodeGraphs.build(construct_code(*params))
+        try:
+            decode = make_graph_sharded_decoder(mesh, graphs, BPConfig(**cfg))
+        except (ValueError, NotImplementedError) as e:
+            out[name] = (type(e).__name__, str(e))
+            continue
+        before = dict(mesh.collectives)
+        dx, dz, code, iters = decode(_shard(mesh, sx), _shard(mesh, sz), p)
+        out[name] = dict(dx=dx.numpy(), dz=dz.numpy(), code=code.numpy(),
+                         iters=iters.numpy(),
+                         collectives={k: mesh.collectives[k] - before[k]
+                                      for k in before})
+    return out
+
+
+def mc_graph_cases(mesh, params: tuple, seed: int, p: float) -> dict:
+    """Graph-sharded chunk groups of chunks 0 and 1 at 8 lanes per data
+    shard for each algorithm, relay, ``run_monte_carlo`` on the mesh, and
+    the lifted-code refusals."""
+    torch.set_num_threads(1)
+    code = construct_code(*params)
+    graphs = CodeGraphs.build(code)
+    test = make_rank_basis_test(code, "cpu")
+    out = {}
+
+    def chunk(algorithm, weight, relay_retries=0):
+        fn = make_graph_sharded_chunk(
+            mesh, graphs, weight, BPConfig(max_iters=20, algorithm=algorithm),
+            8, relay_retries=relay_retries)
+        counters, iters = fn(test, seed, p, [0, 1], device="cpu")
+        return counters.numpy(), iters.numpy()
+
+    for algorithm in ("min-sum", "layered-min-sum", "sum-product"):
+        out[algorithm] = chunk(algorithm, 2)
+    out["relay-base"] = chunk("min-sum", 4)
+    out["relay"] = chunk("min-sum", 4, relay_retries=4)
+    out["relay-again"] = chunk("min-sum", 4, relay_retries=4)
+    before = dict(mesh.collectives)
+    out["run"] = run_monte_carlo(
+        graphs, 2, 4 * 8 * mesh.size(DATA_AXIS), p,
+        BPConfig(max_iters=20, algorithm="min-sum"), seed,
+        batch_size=8 * mesh.size(DATA_AXIS), mesh=mesh, steps_per_call=2,
+        i_minus_p=test, device="cpu")
+    out["run-collectives"] = {k: mesh.collectives[k] - before[k]
+                              for k in before}
+    toric = toric_code(4).build_graphs()
+    for label, call in (
+            ("chunk", lambda: make_graph_sharded_chunk(
+                mesh, toric, 1, BPConfig(algorithm="min-sum"), 8)),
+            ("run", lambda: run_monte_carlo(
+                toric, 1, 8, p, BPConfig(algorithm="min-sum"), seed,
+                batch_size=8, mesh=mesh, device="cpu"))):
+        try:
+            call()
+            out[f"lifted-{label}"] = None
+        except NotImplementedError as e:
+            out[f"lifted-{label}"] = str(e)
+    return out
+
+
+def mesh_cases(mesh, params: tuple, seed: int, p: float, spc_cases) -> dict:
+    """The mesh's shape and its refusals, ``effective_steps_per_call`` on
+    it, and data-parallel runs with the collectives they issued."""
+    torch.set_num_threads(1)
+    code = construct_code(*params)
+    graphs = CodeGraphs.build(code)
+    test = make_rank_basis_test(code, "cpu")
+    nd = mesh.size(DATA_AXIS)
+    out = dict(shape=dict(mesh.shape), backend=mesh.backend,
+               device=str(mesh.device),
+               rank=(mesh.rank(DATA_AXIS), mesh.rank(GRAPH_AXIS)),
+               spc=[effective_steps_per_call(*case, mesh=mesh)
+                    for case in spc_cases])
+    for label, shape in (("too-many", (nd + 1, 1)), ("graph", (nd, 2))):
+        try:
+            make_mesh(*shape, device_type="cpu")
+            out[f"error-{label}"] = None
+        except ValueError as e:
+            out[f"error-{label}"] = str(e)
+    for name, cfg, relay in (
+            ("sum-product", BPConfig(max_iters=100), 0),
+            ("min-sum", BPConfig(max_iters=100, algorithm="min-sum"), 0),
+            ("relay", BPConfig(max_iters=100, algorithm="min-sum"), 4)):
+        before = dict(mesh.collectives)
+        groups = []
+        counters, iters = run_monte_carlo(
+            graphs, 3, 6 * 32 * nd, p, cfg, seed, batch_size=32 * nd,
+            mesh=mesh, steps_per_call=2, relay_retries=relay, i_minus_p=test,
+            progress=lambda g, ng, c, it: groups.append(g), device="cpu")
+        out[name] = dict(counters=counters, iters=iters, groups=groups,
+                         collectives={k: mesh.collectives[k] - before[k]
+                                      for k in before})
+    fn = make_sharded_chunk(mesh, graphs, 3, BPConfig(max_iters=100), 32)
+    counters, iters = fn(test, seed, p, [4, 5], device="cpu")
+    out["chunk"] = (counters.numpy(), iters.numpy())
+    return out
+
+
+def failing_rank(mesh) -> None:
+    """Rank 1 raises while rank 0 waits for it in a collective."""
+    if mesh.rank(DATA_AXIS) == 1:
+        raise RuntimeError("planted failure on rank 1")
+    mesh.all_reduce(torch.ones(1), "sum", DATA_AXIS)
+
+
+def sleeping_rank(mesh) -> None:
+    """Outlives any short timeout."""
+    time.sleep(120)

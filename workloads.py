@@ -49,3 +49,27 @@ GROSS_QUALITY_P = 0.05
 GROSS_QUALITY_RELAY = 8
 GROSS_QUALITY_LAM = 20
 GROSS_QUALITY_CHUNKS = 8
+
+# the graph-sharded workload: the P=521 Hagiwara-Imai code [[5210,521]]
+# (construct_code(4, 5, 10, 521, 25, 1)), weight-220 Pauli errors, p = 0.01,
+# at most 30 iterations, 1024 lanes per data shard, on (data=2) and
+# (data=2 x graph=2) meshes (benchmarks/data/large_code_scaling_r3.jsonl
+# line 2, from benchmarks/large_code_scaling.py; 16 lanes a shard there)
+SHARDED_CODE = (4, 5, 10, 521, 25, 1)
+SHARDED_WEIGHT = 220
+SHARDED_P = 0.01
+SHARDED_ITERS = 30
+SHARDED_BATCH = 1024  # per data shard
+SHARDED_CHUNKS = 4
+SHARDED_DATA = 2
+SHARDED_GRAPH = 2
+# graph-sharded relay (data=1 x graph=2) at the relay setting (RELAY_*): 4
+# chunks (each damped iteration waits for one halo all_gather), held to a
+# data-parallel (data=2) relay run of 16 chunks
+SHARDED_RELAY_CHUNKS = 4
+SHARDED_RELAY_REFERENCE_CHUNKS = 16
+# K8 alone: one step of shard g=0 of G=2 on the [[5210,521]] X graph, at
+# sharded_step_bench.py's batch 256, at the main path's SHARDED_BATCH and at
+# 2048
+K8_BATCHES = (256, SHARDED_BATCH, 2048)
+K8_STEPS = 30  # steps per profiled loop (profile_cells.py --cells k8)
