@@ -27,13 +27,22 @@ exit) if any phase fails:
              twice (X and Z), and the corrected fraction must lie within
              4 sigma + 1e-4 of the reference's 0.99539 (the gate of bench.py)
   6. check   K2 (min-sum): [[610,61]] X and Z at batch 2048 with early exit
-             and fixed 100 iterations, [[42]] at 30 fixed iterations, and a
-             damped run with random gammas; K3 (layered min-sum): [[610,61]]
-             X and Z with a parity test every sweep and 100 fixed sweeps,
-             [[42]]; K4 (min-sum, P >= 768 route): the P=1051 probe code X
-             and Z at batch 2048, fixed 20 iterations and early exit
+             and fixed 100 iterations, [[42]] at 30 fixed iterations, a
+             damped run with random gammas, and relay-shaped batches (one
+             W=40 lane in 24, the others solved), damped and undamped; K3
+             (layered min-sum): [[610,61]] X and Z with a parity test every
+             sweep and 100 fixed sweeps, [[42]]; K4 (min-sum, P >= 768
+             route): the P=1051 probe code X and Z at batch 2048, fixed 20
+             iterations and early exit, relay-shaped X, and relay-shaped Z
+             damped; K2 on the [[5210,521]] X and Z graphs (30 iterations,
+             Z damped).  K2 and K4 count each lane's own iterations: every
+             lane's count must equal the plain count of that lane alone
   7. time    K2 100 iterations and K3 100 sweeps on [[610,61]] X, K4 20
-             iterations on the P=1051 X graph, batch 2048, kernel vs plain
+             iterations on the P=1051 X graph, batch 2048, kernel vs plain;
+             K2 under early exit on W=40 [[610,61]] X batches, damped at
+             2048 and undamped at 16,384, beside a bound from the executed
+             lane-iterations; the osd cell's decode_batch with and without
+             kernel_sort_lanes (outputs must be equal)
   8. main    run_monte_carlo with layered min-sum and with min-sum (check
              every 10) on the headline workload, each gated by bench.py's
              gate for layered (corrected >= 0.99539 - 4 sigma), and min-sum
@@ -154,6 +163,7 @@ from qec_ldpc_tpu_torch.decoder.decode import (
     decode_batch,
     syndrome_fail,
 )
+from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
 from qec_ldpc_tpu_torch.decoder.osd import OSDecoder
 from qec_ldpc_tpu_torch.decoder.osd_device import DeviceOSD0, ranking
 from qec_ldpc_tpu_torch.decoder.relay import relay_decode_batch
@@ -308,6 +318,9 @@ PEAK_INT32_OPS = 132 * 64 * 1.98e9
 # K7 is timed on this many failed-lane inputs (the failed lanes of one
 # phase-14 decode, repeated)
 OSD_TIMED_LANES = 1024
+# the relay-shaped batches of phase 6 keep one lane in this many (the W=40
+# min-sum decode leaves ~4% of lanes to the retries)
+RELAY_SHAPED_EVERY = 24
 
 
 def check(ok: bool, what: str) -> None:
@@ -318,6 +331,19 @@ def check(ok: bool, what: str) -> None:
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+_PHASE: list = []  # [name, start] of the phase under way
+
+
+def phase(name: str | None) -> None:
+    """Start phase ``name`` (None: only end the one under way), printing
+    the wall time of the phase it ends."""
+    now = time.perf_counter()
+    if _PHASE:
+        say("phase", name=json.dumps(_PHASE[0]),
+            seconds=f"{now - _PHASE[1]:.2f}")
+    _PHASE[:] = [] if name is None else [name, now]
 
 
 def reset_counts() -> None:
@@ -343,19 +369,73 @@ def read_counts() -> dict[str, int]:
 
 
 def bound(graph, batch: int, iters: int, algorithm: str,
-          out_rows: int | None = None) -> tuple[float, str]:
+          out_rows: int | None = None,
+          lane_iters: int | None = None) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take
     for ``iters`` fixed iterations of ``algorithm`` on ``graph`` at
-    ``batch``.  Bytes: the int32 syndrome and (damped) the float32 damping
-    read once, the float32 output (``out_rows`` rows, default one per edge)
-    and the int32 iteration counts written once."""
+    ``batch``, or, under early exit, for the ``lane_iters`` lane-iterations
+    the run executed.  Bytes: the int32 syndrome and (damped) the float32
+    damping read once, the float32 output (``out_rows`` rows, default one
+    per edge) and the int32 iteration counts written once."""
     out_rows = graph.num_edges if out_rows is None else out_rows
     nbytes = 4 * batch * (graph.num_checks + out_rows + 1)
     if algorithm == "min-sum-damped":
         nbytes += 4 * batch * graph.num_edges
-    flops = OPS_PER_EDGE_ITERATION[algorithm] * graph.num_edges * batch * iters
+    lane_iters = batch * iters if lane_iters is None else lane_iters
+    flops = OPS_PER_EDGE_ITERATION[algorithm] * graph.num_edges * lane_iters
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def time_early_exit(device, g610: CodeGraphs, gen: torch.Generator) -> float:
+    """Phase 7's early-exit timings: K2 with a check every 10 on W=40
+    batches of [[610,61]] X at relay's p = 0.02, damped at batch 2048 and
+    undamped at the osd cell's 16,384, each first held to its plain version
+    (messages bit for bit, each lane's iterations), then timed beside a
+    bound from the lane-iterations the run executed; then the osd cell's
+    decode_batch with and without kernel_sort_lanes, in turns, outputs
+    compared.  Returns the largest finite |kernel - plain| seen."""
+    cfg = BPConfig(max_iters=MAX_ITERS, algorithm="min-sum")
+    llr = min_sum.prior_llr(np.float32(cfg.prior_factor) * np.float32(RELAY_P))
+    worst = 0.0
+    for batch, damped, reps in ((BATCH, True, 20), (OSD_BATCH, False, 5)):
+        syn = syndromes(g610, RELAY_WEIGHT, 12, device, batch=batch)[0]
+        damping = random_damping(g610.x, gen, batch) if damped else None
+        mode = "timed_damped" if damped else "timed"
+        worst = max(worst, run_checks("min_sum", [
+            ("[[610,61]]", "X", mode, g610.x, syn, llr, cfg, damping)],
+            compare_min_sum))
+        _, iters = min_sum_cuda.min_sum_run(g610.x, syn, llr, MAX_ITERS, 10,
+                                            damping=damping)
+        lane_iters = int(iters.sum())
+        bound_ms, bound_by = bound(
+            g610.x, batch, MAX_ITERS,
+            "min-sum-damped" if damped else "min-sum", lane_iters=lane_iters)
+        time_pair(
+            "min_sum early exit",
+            lambda: min_sum_cuda.min_sum_run(g610.x, syn, llr, MAX_ITERS, 10,
+                                             damping=damping),
+            lambda: min_sum.min_sum_run(g610.x, syn, llr, MAX_ITERS, 10,
+                                        damping=damping),
+            reps, 1, batch=batch, graph="[[610,61]] X W=40", damped=damped,
+            lane_iters=lane_iters, max_lane_iters=int(iters.max()),
+            mean_lane_iters=f"{lane_iters / batch:.3f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+    sx, sz = syndromes(g610, OSD_WEIGHT, 13, device, batch=OSD_BATCH)
+    results, ms = {}, {False: [], True: []}
+    for sort in (False, True, True, False):
+        c = BPConfig(max_iters=MAX_ITERS, algorithm="min-sum",
+                     kernel_sort_lanes=sort)
+        ms[sort].append(time_ms(lambda: results.__setitem__(
+            sort, decode_batch(g610, sx, sz, OSD_P, c)), 5))
+    same = all(torch.equal(getattr(results[True], f), getattr(results[False], f))
+               for f in ("decisions_x", "decisions_z", "error_code"))
+    say("time", what="decode_batch, osd cell shape", batch=OSD_BATCH,
+        unsorted_ms=[round(t, 4) for t in ms[False]],
+        sorted_ms=[round(t, 4) for t in ms[True]],
+        outputs_equal=same)
+    check(same, "kernel_sort_lanes changed the decode's outputs")
+    return worst
 
 
 def two_proportion_z(k1: int, n1: int, k2: int, n2: int) -> float:
@@ -364,16 +444,31 @@ def two_proportion_z(k1: int, n1: int, k2: int, n2: int) -> float:
 
 
 def syndromes(graphs: CodeGraphs, weight: int, seed: int, device,
-              p_err: float | None = None):
+              p_err: float | None = None, batch: int = BATCH):
     """One batch of syndromes: weight-``weight`` Pauli errors, or
     depolarizing ones at ``p_err``."""
     gen = chunk_generator(seed, 0, device)
     if p_err is None:
-        xe, ze = sample_weight_w_errors(gen, graphs.code.n, weight, BATCH)
+        xe, ze = sample_weight_w_errors(gen, graphs.code.n, weight, batch)
     else:
-        xe, ze = sample_depolarizing_errors(gen, graphs.code.n, p_err, BATCH)
+        xe, ze = sample_depolarizing_errors(gen, graphs.code.n, p_err, batch)
     return (graphs.x.syndrome(xe.to(torch.int32)),
             graphs.z.syndrome(ze.to(torch.int32)))
+
+
+def relay_shaped(syndrome: torch.Tensor) -> torch.Tensor:
+    """A relay retry's batch: every RELAY_SHAPED_EVERY-th lane keeps its
+    syndrome, the others are solved (a zero syndrome)."""
+    keep = torch.arange(syndrome.shape[1], device=syndrome.device)
+    keep = keep % RELAY_SHAPED_EVERY == 0
+    return torch.where(keep[None, :], syndrome, 0).contiguous()
+
+
+def random_damping(graph, gen: torch.Generator, batch: int = BATCH):
+    """Relay's per-variable damping, gamma ~ U[0.05, 1.0), on every edge."""
+    gamma = torch.rand((graph.num_vars, batch), generator=gen,
+                       device=gen.device)
+    return graph.expand_vars(gamma * 0.95 + 0.05).contiguous()
 
 
 def bit_mismatches(got: torch.Tensor, want: torch.Tensor):
@@ -408,19 +503,25 @@ def compare_bp(graph, syndrome, prior: np.float32, cfg: BPConfig):
 
 
 def compare_min_sum(graph, syndrome, llr: float, cfg: BPConfig, damping=None):
-    """K2 (or K4, by the graph's P) vs plain min-sum on one graph."""
+    """K2 (or K4, by the graph's P; K5 on a lifted graph) vs plain min-sum
+    on one graph.  K2 and K4 count each lane's own iterations: every lane's
+    count must equal the plain count of that lane alone; K5 counts per
+    tile, so its maximum must equal the plain loop's."""
     v_k, it_k = min_sum_cuda.min_sum_run(graph, syndrome, llr, cfg.max_iters,
                                          cfg.check_every, cfg.conv_low,
                                          cfg.min_sum_alpha, damping=damping)
-    v_p, n_p = min_sum.min_sum_run(graph, syndrome, llr, cfg.max_iters,
-                                   cfg.check_every, cfg.conv_low,
-                                   cfg.min_sum_alpha, damping=damping)
+    v_p, lanes_p = min_sum.min_sum_run_lanes(
+        graph, syndrome, llr, cfg.max_iters, cfg.check_every, cfg.conv_low,
+        cfg.min_sum_alpha, damping=damping)
     torch.cuda.synchronize()
     mism, err, nans = bit_mismatches(v_k, v_p)
     mism += flag_mismatches(decide(graph, v_k, syndrome, cfg),
                             decide(graph, v_p, syndrome, cfg))
-    mism += int(int(it_k.max()) != int(n_p))
-    return mism, err, int(n_p), nans
+    if isinstance(graph, CirculantGraph):
+        mism += int((it_k != lanes_p).sum())
+    else:
+        mism += int(int(it_k.max()) != int(lanes_p.max()))
+    return mism, err, int(lanes_p.max()), nans
 
 
 def compare_layered(graph, syndrome, llr: float, cfg: BPConfig):
@@ -725,6 +826,7 @@ def osd_phases(device, g610: CodeGraphs, gross: CodeGraphs, bb756: CodeGraphs,
     ``times`` and ``launches`` for K7; returns K7's (ms, plain ms, bound ms,
     bound_by) per [[610,61]] sector."""
     # 14. K7 vs plain on the card ---------------------------------------------
+    phase("14 K7 vs plain")
     osd_lanes = osd_failed_lanes(g610, 15, device, OSD_BATCH, weight=OSD_WEIGHT)
     gross_lanes = osd_failed_lanes(gross, 16, device, BATCH,
                                    p_err=GROSS_QUALITY_P)
@@ -802,6 +904,7 @@ def osd_phases(device, g610: CodeGraphs, gross: CodeGraphs, bb756: CodeGraphs,
     worst["osd0"] = max(worst["osd0"], err)
 
     # 15. K7 time vs plain (OSD_TIMED_LANES failed-lane inputs) ----------------
+    phase("15 K7 time")
     osd_times = {}
     for side, (h, syn, soft) in zip("XZ", osd_lanes):
         idx = torch.arange(OSD_TIMED_LANES, device=device) % syn.shape[1]
@@ -818,6 +921,7 @@ def osd_phases(device, g610: CodeGraphs, gross: CodeGraphs, bb756: CodeGraphs,
     times["osd0"] = osd_times["Z"][:2]
 
     # 16. the quality mode's main path: min-sum + device OSD-0 ------------------
+    phase("16 quality mode")
     osd_cfg = BPConfig(max_iters=MAX_ITERS, algorithm="min-sum")
     label = f"min-sum + OSD-{OSD_LAM} W={OSD_WEIGHT}"
     syncs = {}
@@ -867,6 +971,7 @@ def osd_phases(device, g610: CodeGraphs, gross: CodeGraphs, bb756: CodeGraphs,
           f"{label}: the host route's chunk 0 differs")
 
     # 17. the host-OSD quality stacks -----------------------------------------
+    phase("17 host-OSD stacks")
     for label, graphs, weight, p_err, cfg, chunks, relay, lam, model, \
             logical, reference in (
             (f"layered + relay{QUALITY_RELAY} + OSD-{QUALITY_LAM} W={OSD_WEIGHT}",
@@ -1122,6 +1227,7 @@ def mesh_phases() -> int:
                 dict(max_iters=MAX_ITERS, check_every=10), CHUNKS, BATCH, 1, 0)
 
     # 20. (data=2): the data-parallel runs, the reference counters ----------
+    phase("20 data=2")
     data = run_world("data=2", SHARDED_DATA, 1, [headline, *sharded, *relay[0]])
     for r in data:
         for name, kernel, per_chunk in (
@@ -1143,6 +1249,7 @@ def mesh_phases() -> int:
                         SHARDED_MIN_SUM_CORRECTED)
 
     # 20. (data=2 x graph=2): the same runs graph-sharded ------------------
+    phase("20 data=2 x graph=2")
     graph = run_world("data=2 x graph=2", SHARDED_DATA, SHARDED_GRAPH, sharded)
     for name in (sharded[0][0], sharded[1][0]):
         check(np.array_equal(graph[0][name]["counters"],
@@ -1195,6 +1302,7 @@ def mesh_phases() -> int:
         check(c["all_reduce"] <= 2 * iters, f"all_reduces {c}")
 
     # 21. relay, (data=1 x graph=2) --------------------------------------------
+    phase("21 sharded relay")
     relayed = run_world("data=1 x graph=2", 1, SHARDED_GRAPH, relay[1])
     rates = []
     for world, runs in ((data, relay[0]), (relayed, relay[1])):
@@ -1220,6 +1328,7 @@ def mesh_phases() -> int:
 def main() -> int:
     started = time.perf_counter()
     # 1. device -------------------------------------------------------------
+    phase("1 device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "the port's GPU path needs a CUDA device")
@@ -1235,6 +1344,7 @@ def main() -> int:
         python=sys.version.split()[0])
 
     # 2. build: one nvcc per source, all started together --------------------
+    phase("2 build")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
         logs = list(pool.map(lambda lib: build.build(*lib), LIBRARIES))
@@ -1249,6 +1359,7 @@ def main() -> int:
                 print("  ptxas:", line.strip(), flush=True)
 
     # 3. K1 vs plain on the card ----------------------------------------------
+    phase("3 K1 vs plain")
     g610 = CodeGraphs.build(construct_code(*HEADLINE_CODE))
     g42 = CodeGraphs.build(construct_code(3, 3, 6, 7, 2, 3))
     prior = np.float32(BPConfig().prior_factor) * np.float32(P_ERR)
@@ -1266,6 +1377,7 @@ def main() -> int:
     worst = {"bp_sum_product": run_checks("bp_sum_product", cases, compare_bp)}
 
     # 4. K1 time vs plain (fixed work, [[610,61]] X, batch 2048) --------------
+    phase("4 K1 time")
     prior_t = torch.tensor(prior, device=device)
     times = {"bp_sum_product": time_pair(
         "bp_sum_product",
@@ -1275,6 +1387,7 @@ def main() -> int:
         20, 3, graph="[[610,61]] X", iters=MAX_ITERS)}
 
     # 5. the sum-product main path ---------------------------------------------
+    phase("5 sum-product main path")
     logical_610 = make_rank_basis_test(g610.code, device)
     cfg = BPConfig(max_iters=MAX_ITERS, check_every=10)
     counters, lane_iters, seconds, counts, syncs = monte_carlo(
@@ -1289,6 +1402,7 @@ def main() -> int:
     gate_headline("sum-product", counters, two_sided=True)
 
     # 6. K2, K3, K4 vs plain on the card -----------------------------------------
+    phase("6 K2 K3 K4 vs plain")
     llr = min_sum.prior_llr(prior)
     ms_early = BPConfig(max_iters=MAX_ITERS, algorithm="min-sum")
     ms_fixed = BPConfig(max_iters=MAX_ITERS, check_every=MAX_ITERS + 1,
@@ -1296,8 +1410,7 @@ def main() -> int:
     ms42 = BPConfig(max_iters=30, check_every=31, algorithm="min-sum")
     gen = torch.Generator(device=device)
     gen.manual_seed(11)
-    gamma = torch.rand((g610.x.num_vars, BATCH), generator=gen, device=device)
-    damping = g610.x.expand_vars(gamma * 0.95 + 0.05).contiguous()
+    damping = random_damping(g610.x, gen)
     cases = []
     for mode, c in (("early_exit", ms_early), ("fixed", ms_fixed)):
         cases += [("[[610,61]]", "X", mode, g610.x, s610[0], llr, c),
@@ -1306,6 +1419,31 @@ def main() -> int:
               ("[[42]]", "Z", "fixed", g42.z, s42[1], llr, ms42),
               ("[[610,61]]", "X", "damped_early_exit", g610.x, s610[0], llr,
                ms_early, damping)]
+    # a relay retry's batch at relay's prior: most lanes solved, a few W=40
+    llr_relay = min_sum.prior_llr(np.float32(BPConfig().prior_factor)
+                                  * np.float32(RELAY_P))
+    s_relay = [relay_shaped(s) for s in syndromes(g610, RELAY_WEIGHT, 10, device)]
+    for side, graph, syn in (("X", g610.x, s_relay[0]), ("Z", g610.z, s_relay[1])):
+        cases += [("[[610,61]]", side, "relay_shaped", graph, syn, llr_relay,
+                   ms_early),
+                  ("[[610,61]]", side, "relay_shaped_damped", graph, syn,
+                   llr_relay, ms_early, random_damping(graph, gen))]
+    # the graph-sharded workload's code, which the data-only mesh decodes
+    # through K2 (P = 521: 1024 threads, all of a lane in shared memory;
+    # damped, the damping in the lane's slab)
+    g5210 = CodeGraphs.build(construct_code(*SHARDED_CODE))
+    s5210 = syndromes(g5210, SHARDED_WEIGHT, 19, device)
+    ms30 = BPConfig(max_iters=SHARDED_ITERS, algorithm="min-sum")
+    cases += [("[[5210,521]]", "X", "early_exit", g5210.x, s5210[0], llr, ms30),
+              ("[[5210,521]]", "Z", "damped_early_exit", g5210.z, s5210[1],
+               llr, ms30, random_damping(g5210.z, gen))]
+    # the osd cell's decode (phase 16's main path): a grid of 16,384 CTAs
+    llr_osd = min_sum.prior_llr(np.float32(BPConfig().prior_factor)
+                                * np.float32(OSD_P))
+    s_osd = syndromes(g610, OSD_WEIGHT, 20, device, batch=OSD_BATCH)
+    cases += [("[[610,61]]", side, "osd_cell", graph, syn, llr_osd, ms_early)
+              for side, graph, syn in (("X", g610.x, s_osd[0]),
+                                       ("Z", g610.z, s_osd[1]))]
     worst["min_sum"] = run_checks("min_sum", cases, compare_min_sum)
 
     ly_early = BPConfig(max_iters=MAX_ITERS, algorithm="layered-min-sum")
@@ -1331,12 +1469,20 @@ def main() -> int:
     for mode, c in (("fixed", wide_fixed), ("early_exit", ms_early)):
         cases += [(f"P={PROBE_P}", "X", mode, probe.x, sp[0], llr, c),
                   (f"P={PROBE_P}", "Z", mode, probe.z, sp[1], llr, c)]
+    # relay-shaped, and damped on the largest lane (Z: its check state and
+    # damping in the lane's global slab)
+    cases += [(f"P={PROBE_P}", "X", "relay_shaped", probe.x,
+               relay_shaped(sp[0]), llr, ms_early),
+              (f"P={PROBE_P}", "Z", "relay_shaped_damped", probe.z,
+               relay_shaped(sp[1]), llr, ms_early,
+               random_damping(probe.z, gen))]
     before = min_sum_cuda.wide_launches
     worst["min_sum_wide"] = run_checks("min_sum_wide", cases, compare_min_sum)
     check(min_sum_cuda.wide_launches == before + len(cases),
           "the P=1051 checks did not take the wide route")
 
     # 7. K2, K3, K4 time vs plain (fixed work, batch 2048) ---------------------
+    phase("7 K2 K3 K4 time")
     times["min_sum"] = time_pair(
         "min_sum",
         lambda: min_sum_cuda.min_sum_run(g610.x, s610[0], llr, MAX_ITERS,
@@ -1356,8 +1502,11 @@ def main() -> int:
         lambda: min_sum_cuda.min_sum_run_wide(probe.x, sp[0], llr, 20, 21),
         lambda: min_sum.min_sum_run(probe.x, sp[0], llr, 20, 21),
         5, 2, graph=f"P={PROBE_P} X", iters=20)
+    phase("7 K2 early exit and lane sort")
+    worst["min_sum"] = max(worst["min_sum"], time_early_exit(device, g610, gen))
 
     # 8. the layered, min-sum and large-P main paths -----------------------------
+    phase("8 layered, min-sum, P=1051 main paths")
     for label, c, kernel in (
             ("layered-min-sum", BPConfig(max_iters=MAX_ITERS,
                                          algorithm="layered-min-sum"),
@@ -1382,6 +1531,7 @@ def main() -> int:
     gate_two_proportion(f"min-sum P={PROBE_P}", counters, PROBE_CORRECTED)
 
     # 9. relay ------------------------------------------------------------------
+    phase("9 relay")
     relay_cfg = BPConfig(max_iters=MAX_ITERS, algorithm="min-sum")
     base, *_ = monte_carlo("min-sum W=40", g610, RELAY_WEIGHT, RELAY_P,
                            relay_cfg, RELAY_CHUNKS, 4, logical_610, device)
@@ -1407,6 +1557,7 @@ def main() -> int:
                          device)
 
     # 10. K5 and K6 vs plain on lifted graphs -----------------------------------
+    phase("10 K5 K6 vs plain")
     gross = known_bicycle_code(GROSS).build_graphs()
     s_gross = syndromes(gross, 0, 12, device, p_err=0.03)
     gamma = torch.rand((gross.x.num_vars, BATCH), generator=gen, device=device)
@@ -1447,6 +1598,7 @@ def main() -> int:
         f"took another route (the wide one included)")
 
     # 11. K5 and K6 time vs plain (fixed work, gross X, batch 2048) ---------------
+    phase("11 K5 K6 time")
     times["lifted_min_sum"] = time_pair(
         "lifted_min_sum",
         lambda: min_sum_cuda.min_sum_run(gross.x, s_gross[0], llr, MAX_ITERS,
@@ -1463,6 +1615,7 @@ def main() -> int:
         50, 3, graph=f"{GROSS} X", iters=MAX_ITERS)
 
     # 12. the lifted main paths: bench.py's bicycle_gross workload ---------------
+    phase("12 lifted main paths")
     logical_gross = make_rank_basis_test(gross.code, device)
     for label, c, kernel, reference in (
             ("min-sum gross", BPConfig(max_iters=MAX_ITERS, check_every=10,
@@ -1478,6 +1631,7 @@ def main() -> int:
         gate_two_proportion(label, counters, reference)
 
     # 13. relay on the gross code --------------------------------------------------
+    phase("13 gross relay")
     relay_gross = f"relay gross p={GROSS_RELAY_P} retries={GROSS_RELAY_RETRIES}"
     base, *_ = monte_carlo(f"min-sum gross p={GROSS_RELAY_P}", gross, 0,
                            GROSS_RELAY_P, relay_cfg, GROSS_RELAY_CHUNKS, 6,
@@ -1505,10 +1659,12 @@ def main() -> int:
                            logical_gross, worst, times, launches)
 
     # 18.-21. K8 and the multi-device engines -----------------------------------
-    g5210 = CodeGraphs.build(construct_code(*SHARDED_CODE))
+    phase("18 K8 vs plain")
     worst["sharded_min_sum_step"] = check_k8(device, g610, g5210, llr)
+    phase("19 K8 time")
     k8_times = time_k8(device, g5210, llr)
     launches["sharded_min_sum_step"] = mesh_phases()
+    phase(None)
     check("jax" not in sys.modules, "the port imported jax")
 
     say("total", seconds=f"{time.perf_counter() - started:.2f}")

@@ -154,37 +154,60 @@ def soft_output(graph: CirculantGraph | LiftedGraph, v: torch.Tensor,
     return _edge_sum(torch.where(vv.isnan(), 0.0, term))
 
 
+def lane_sort(syndrome: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(perm, inv)``: the batch-lane permutation that orders lanes by
+    syndrome weight (a stable sort, so equal weights keep their order), and
+    its inverse.  The same permutation as the JAX package's
+    ``decoder/decode.py::_lane_sort``; syndrome weight predicts how long a
+    lane takes to converge."""
+    perm = torch.argsort(syndrome.sum(dim=0), stable=True)
+    return perm, torch.argsort(perm)
+
+
 def _decode_one_graph(graph: CirculantGraph | LiftedGraph,
                       syndrome: torch.Tensor, prior: np.float32, cfg: BPConfig):
     """One graph: ``(decisions, conv_fail, syn_fail, lane_iters, soft)``,
     with ``lane_iters`` (batch,) each lane's executed iterations and
-    ``soft`` None unless ``cfg.return_soft``."""
+    ``soft`` None unless ``cfg.return_soft``.
+
+    With ``cfg.kernel_sort_lanes`` the kernel decodes the lanes in
+    :func:`lane_sort` order and its outputs go back to the original order
+    right after the call, so everything after it sees the lanes as given.
+    Lanes decode independently, so only the per-lane iteration counts'
+    placement within a launch changes."""
     if cfg.algorithm == "layered-min-sum" and isinstance(graph, LiftedGraph):
         raise ValueError(
             "layered-min-sum requires a CirculantGraph (block-row layers of "
             "a lifted graph are not variable-disjoint); use algorithm="
             "'min-sum' for lifted codes")
+    syn_k, inv = syndrome, None
+    if cfg.kernel_sort_lanes:
+        perm, inv = lane_sort(syndrome)
+        syn_k = syndrome[:, perm].contiguous()
     if cfg.algorithm == "layered-min-sum":
-        q, lane_iters = layered_cuda.layered_run(
-            graph, syndrome, prior_llr(prior), cfg.max_iters,
+        out, lane_iters = layered_cuda.layered_run(
+            graph, syn_k, prior_llr(prior), cfg.max_iters,
             cfg.layered_check_every, cfg.min_sum_alpha)
+    elif cfg.algorithm == "min-sum":
+        out, lane_iters = min_sum_cuda.min_sum_run(
+            graph, syn_k, prior_llr(prior), cfg.max_iters, cfg.check_every,
+            cfg.conv_low, cfg.min_sum_alpha)
+    else:
+        out, lane_iters = bp_cuda.bp_run(
+            graph, syn_k, prior, cfg.max_iters, cfg.check_every,
+            cfg.conv_low, cfg.conv_high)
+    if inv is not None:
+        out, lane_iters = out[:, inv], lane_iters[inv]
+    if cfg.algorithm == "layered-min-sum":
         # layered keeps posteriors: the decision is q <= 0, and "failed to
         # converge" is "the decision violates the syndrome"
-        decisions = (q <= 0.0).to(torch.int8)
+        decisions = (out <= 0.0).to(torch.int8)
         syn_fail = syndrome_fail(graph, decisions, syndrome)
         # layered q IS the posterior
         return (decisions, syn_fail, syn_fail, lane_iters,
-                q if cfg.return_soft else None)
-    if cfg.algorithm == "min-sum":
-        v, lane_iters = min_sum_cuda.min_sum_run(
-            graph, syndrome, prior_llr(prior), cfg.max_iters, cfg.check_every,
-            cfg.conv_low, cfg.min_sum_alpha)
-    else:
-        v, lane_iters = bp_cuda.bp_run(
-            graph, syndrome, prior, cfg.max_iters, cfg.check_every,
-            cfg.conv_low, cfg.conv_high)
-    soft = soft_output(graph, v, cfg) if cfg.return_soft else None
-    return (*decide(graph, v, syndrome, cfg), lane_iters, soft)
+                out if cfg.return_soft else None)
+    soft = soft_output(graph, out, cfg) if cfg.return_soft else None
+    return (*decide(graph, out, syndrome, cfg), lane_iters, soft)
 
 
 def decode_batch(
@@ -196,8 +219,10 @@ def decode_batch(
 ) -> DecodeResult:
     """Decode both graphs with ``cfg.algorithm`` (one of ``ALGORITHMS``).
 
-    ``iter_samples_*`` counts executed lane-iterations: per-lane tile counts
-    on the kernel path, iterations x batch on the plain path, as in JAX."""
+    ``iter_samples_*`` counts executed lane-iterations: on the kernel path
+    each lane's own count for min-sum (K2/K4) and its tile's count for the
+    other kernels (JAX's Pallas kernels count per 128-lane tile);
+    iterations x batch on the plain path, as in JAX."""
     if cfg.algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}; expected one "
                          f"of {ALGORITHMS}")

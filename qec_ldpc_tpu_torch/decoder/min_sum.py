@@ -147,6 +147,36 @@ def min_sum_run(
     ``v = damping * v_old + (1 - damping) * v_new``.  ``None`` is the exact
     undamped update.  The host reads the done mask only after a convergence
     test, the one place it can change."""
+    v, n, _ = _min_sum_loop(graph, syndrome, prior_llr, max_iters,
+                            check_every, conv_low, alpha, damping)
+    return v, n
+
+
+def min_sum_run_lanes(
+    graph: CirculantGraph | LiftedGraph,
+    syndrome: torch.Tensor,
+    prior_llr: float,
+    max_iters: int,
+    check_every: int = 10,
+    conv_low: float = 0.01,
+    alpha: float = 0.75,
+    damping: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`min_sum_run` with each lane's own executed iteration count:
+    ``(v_final, lane_iters (batch,) int32)``, the iterations in which the
+    lane was not yet done.  Lanes decode independently and a done lane is
+    frozen, so a lane's count is what :func:`min_sum_run` gives for the lane
+    run alone, and their maximum is the batch run's count.  The reference
+    the min-sum kernel's per-lane ``iters`` is held to."""
+    v, _, lane_iters = _min_sum_loop(graph, syndrome, prior_llr, max_iters,
+                                     check_every, conv_low, alpha, damping)
+    return v, lane_iters
+
+
+def _min_sum_loop(graph, syndrome, prior_llr, max_iters, check_every,
+                  conv_low, alpha, damping):
+    """The loop of :func:`min_sum_run`: ``(v_final, iters_executed, per-lane
+    executed iterations)``."""
     batch = syndrome.shape[-1]
     device = syndrome.device
     prior_llr = f32(prior_llr)
@@ -157,6 +187,7 @@ def min_sum_run(
     if damping is not None:
         damping = damping.to(torch.float32)
     done = torch.zeros(batch, dtype=torch.bool, device=device)
+    lane_iters = torch.zeros(batch, dtype=torch.int32, device=device)
     all_done = False
     n = 0
     while n < max_iters and not all_done:
@@ -165,8 +196,9 @@ def min_sum_run(
         if damping is not None:
             v_new = damped_blend(damping, v, v_new)
         v = torch.where(done[None, :], v, v_new)
+        lane_iters += ~done
         if n % check_every == 0:
             done = done | ~_not_converged_mask_llr(v, band)
             all_done = bool(done.all())
         n += 1
-    return v, torch.full((), n, dtype=torch.int32, device=device)
+    return v, torch.full((), n, dtype=torch.int32, device=device), lane_iters

@@ -37,10 +37,12 @@ class BPConfig:
     """Decode-loop knobs: the same fields and defaults as the JAX
     ``BPConfig`` so configs carry across unchanged.  The port runs every
     ``algorithm`` of the JAX package ("sum-product", "min-sum",
-    "layered-min-sum", the last on circulant graphs only); the ``kernel*``
-    fields select TPU kernels and are kept only so the two configs compare
-    equal — on a CUDA tensor the decode always runs the algorithm's CUDA
-    kernel."""
+    "layered-min-sum", the last on circulant graphs only).  On a CUDA
+    tensor the decode always runs the algorithm's CUDA kernel, so
+    ``kernel``, ``kernel_tile_batch`` and ``kernel_roll_impl`` (TPU kernel
+    choices) are kept only so the two configs compare equal;
+    ``kernel_sort_lanes`` sorts the lanes by syndrome weight around the
+    kernel call (``decode._decode_one_graph``), as JAX does."""
 
     max_iters: int = 100
     check_every: int = 10

@@ -90,6 +90,11 @@ class CodeStatistics:
         return self.num_errors_tested / (self.duration_micro_seconds * 1e-6)
 
 
+#: the entry :func:`parse_reference_text` adds to a record whose ``Logical
+#: Errors`` it derived from the split X and Z lines
+DERIVED_MARKER = ("Logical Errors derived", "X+Z")
+
+
 def parse_reference_text(text: str) -> dict:
     """Parse a reference results file (one or more CodeStatistics dumps) into
     a list of field dicts — used by the golden-corpus parity tests.
@@ -105,8 +110,9 @@ def parse_reference_text(text: str) -> dict:
 
     The key/value structure is shared, so records keep their raw keys;
     old-format records additionally get a derived ``Logical Errors`` entry
-    (the X+Z sum) when only the split lines exist, and consumers can detect
-    the old format by the absence of ``Errors With X``.  Use
+    (the X+Z sum) when only the split lines exist, marked by
+    ``DERIVED_MARKER`` (``"Logical Errors derived": "X+Z"``), and consumers
+    can detect the old format by the absence of ``Errors With X``.  Use
     :func:`parse_code_params` to read the code parameters from either
     ``Code:`` form.
     """
@@ -127,11 +133,13 @@ def parse_reference_text(text: str) -> dict:
         records.append(current)
     for rec in records:
         # the derived X+Z sum counts a sample with both an X and a Z logical
-        # error twice; kept as the JAX parser has it so the two agree
+        # error twice; its value is the JAX parser's, so the two agree on
+        # every key they share, and the marker says it was not read
         if "Logical Errors" not in rec and "Logical Errors X" in rec:
             rec["Logical Errors"] = str(
                 int(rec["Logical Errors X"])
                 + int(rec.get("Logical Errors Z", 0)))
+            rec.update([DERIVED_MARKER])
     return records
 
 

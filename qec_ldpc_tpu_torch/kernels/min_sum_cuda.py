@@ -7,21 +7,25 @@ The port of two TPU kernels that compute one function:
   * ``qec_ldpc_tpu/kernels/min_sum_wide_pallas.py::min_sum_run_wide_pallas``
     — the route :func:`min_sum_run_wide`, which :func:`min_sum_run` hands
     ``P >= WIDE_MIN_P`` to, as the JAX kernel does.  On the TPU it is a
-    transposed layout for VMEM's sake; here messages live in global memory,
-    so both routes launch the same kernel and only their counts differ.
+    transposed layout for VMEM's sake; here both routes launch the same
+    kernel, one lane per CTA, and :func:`plan` decides per graph and device
+    which of a lane's arrays fit in shared memory and which go to a per-lane
+    slab of global scratch.
 
-Each wrapper checks its arguments, allocates the outputs and launches the
-kernel on the current CUDA stream for a CUDA tensor; for a CPU tensor it runs
-the plain version, ``decoder/min_sum.min_sum_run``.  There is no fallback: a
-CUDA tensor either runs the kernel or raises.  A ``LiftedGraph`` goes to
-``lifted_min_sum_cuda.lifted_min_sum_run`` (K5's kernel) before the large-P
-test, as the JAX dispatch does.  ``launches`` and
-``wide_launches`` count each route's kernel launches (never the plain path).
+Each wrapper checks its arguments, allocates the outputs and the scratch and
+launches the kernel on the current CUDA stream for a CUDA tensor; for a CPU
+tensor it runs the plain version, ``decoder/min_sum.min_sum_run``.  There is
+no fallback: a CUDA tensor either runs the kernel or raises (a launch the
+card refuses, for shared memory or threads, raises too).  A ``LiftedGraph``
+goes to ``lifted_min_sum_cuda.lifted_min_sum_run`` (K5's kernel) before the
+large-P test, as the JAX dispatch does.  ``launches`` and ``wide_launches``
+count each route's kernel launches (never the plain path).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -47,20 +51,78 @@ launches = 0
 wide_launches = 0
 
 
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Where one lane's arrays live, and the CTA size: what the launcher is
+    given (the kernel lays the arrays out in :func:`plan`'s order)."""
+
+    threads: int
+    v_shared: bool
+    state_shared: bool
+    damping_shared: bool
+    smem_bytes: int      # dynamic shared memory per CTA
+    slab_floats: int     # float32 global scratch per lane
+
+
+def plan(graph: CirculantGraph, damped: bool, smem_limit: int) -> Plan:
+    """The kernel's placement for ``graph`` on a device whose CTA may take
+    ``smem_limit`` bytes of shared memory (its opt-in limit, 227 KB on an
+    H100): the syndrome bits always in shared memory, then, while they fit,
+    V (4 bytes per edge), the compressed check state (12 bytes per check)
+    and the damping (4 bytes per edge); the rest in the lane's global slab.
+    Each array starts 16-byte aligned, in shared memory and in the slab.
+    Threads: one per two variables, a multiple of 32 in [128, 1024], so
+    that an iteration is one or two passes over the lane's checks and
+    variables."""
+    edges, checks = graph.num_edges, graph.num_checks
+    v_bytes = _align16(4 * edges)
+    state_bytes = _align16(8 * checks) + _align16(4 * checks)
+    used, slab_bytes = _align16(checks), 0
+    placed = []
+    for nbytes, wanted in ((v_bytes, True), (state_bytes, True),
+                           (v_bytes, damped)):
+        fits = wanted and used + nbytes <= smem_limit
+        used += nbytes if fits else 0
+        slab_bytes += nbytes if wanted and not fits else 0
+        placed.append(fits)
+    threads = min(1024, max(128, -(-graph.num_vars // 64) * 32))
+    return Plan(threads, *placed, used, slab_bytes // 4)
+
+
+#: the C types of ``qec_min_sum``'s parameters, in order
+ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32),
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+]
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The built library with the launcher's C signature declared."""
     lib = build.load("qec_min_sum", SOURCES)
-    fn = lib.qec_min_sum
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32),
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    lib.qec_min_sum.argtypes = ARGTYPES
+    lib.qec_min_sum.restype = ctypes.c_int
+    lib.qec_min_sum_smem_optin.argtypes = [ctypes.c_int]
+    lib.qec_min_sum_smem_optin.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(index: int) -> int:
+    """The shared memory a CTA may take on CUDA device ``index`` with the
+    opt-in, in bytes (queried once per device)."""
+    limit = _library().qec_min_sum_smem_optin(index)
+    launch.raise_on_error("qec_min_sum_smem_optin", -min(limit, 0))
+    return limit
 
 
 def _run(graph: CirculantGraph, syndrome: torch.Tensor, prior_llr: float,
@@ -78,18 +140,22 @@ def _run(graph: CirculantGraph, syndrome: torch.Tensor, prior_llr: float,
     if damping is not None and not damping.is_contiguous():
         raise ValueError("damping must be contiguous")
     lib = _library()
+    pl = plan(graph, damping is not None, smem_optin(syndrome.device.index))
     v = torch.empty((graph.num_edges, batch), dtype=torch.float32,
                     device=syndrome.device)
-    e = torch.empty_like(v)
+    scratch = (torch.empty((batch * pl.slab_floats,), dtype=torch.float32,
+                           device=syndrome.device) if pl.slab_floats else None)
     iters = torch.empty((batch,), dtype=torch.int32, device=syndrome.device)
     with torch.cuda.device(syndrome.device):
         err = lib.qec_min_sum(
-            syndrome.data_ptr(), v.data_ptr(), e.data_ptr(),
+            syndrome.data_ptr(), v.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             None if damping is None else damping.data_ptr(), iters.data_ptr(),
             launch.shift_table(graph), graph.B, graph.L, graph.P, batch,
             min_sum.f32(prior_llr), max_iters, check_every,
             min_sum.f32(min_sum.np_log_band(conv_low)), min_sum.f32(alpha),
-            launch.stream_of(syndrome.device))
+            pl.threads, pl.v_shared, pl.state_shared, pl.damping_shared,
+            pl.smem_bytes, pl.slab_floats, launch.stream_of(syndrome.device))
     launch.raise_on_error("qec_min_sum", err)
     return v, iters, True
 
@@ -107,11 +173,13 @@ def min_sum_run(
     """Returns ``(v_final (num_edges, batch) f32 LLRs, iters (batch,) int32)``.
 
     Per lane, ``v_final`` equals the plain ``min_sum.min_sum_run`` bit for
-    bit, damped or not.  ``iters`` is each lane's executed iteration count:
-    the kernel early-exits per tile of lanes, so a lane counts its tile's
-    iterations; the maximum over lanes is the plain loop's count.  Lifted
-    graphs go to ``lifted_min_sum_cuda.lifted_min_sum_run``, and circulant
-    graphs with ``P >= WIDE_MIN_P`` to :func:`min_sum_run_wide`."""
+    bit, damped or not.  ``iters``: on the kernel, each lane's own executed
+    iterations, which is what the plain loop counts for that lane run alone
+    (``min_sum.min_sum_run_lanes``); its maximum is the plain loop's count
+    for the batch.  (JAX's Pallas kernel counts per 128-lane tile.)  On a CPU
+    tensor every lane gets the plain loop's count, as JAX's XLA path does.
+    Lifted graphs go to ``lifted_min_sum_cuda.lifted_min_sum_run``, and
+    circulant graphs with ``P >= WIDE_MIN_P`` to :func:`min_sum_run_wide`."""
     global launches
     if isinstance(graph, LiftedGraph):
         return lifted_min_sum_cuda.lifted_min_sum_run(

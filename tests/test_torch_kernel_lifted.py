@@ -242,7 +242,9 @@ def test_hypergraph_kernels_match_plain_on_cuda(cuda_device, build_code):
 @pytest.mark.cuda
 def test_one_dimensional_group_matches_circulant_kernel(cuda_device):
     """``LiftedGraph.from_circulant`` of [[610,61]] through K5/K6 equals the
-    circulant kernels K2/K1 bit for bit."""
+    circulant kernels K2/K1 bit for bit.  K1, K5 and K6 count a 16-lane
+    tile's iterations per lane, K2 each lane's own: K2's counts reach the
+    same maximum and never exceed their tile's."""
     code = codes.construct_code(4, 5, 10, 61, 9, 49)
     cg = CodeGraphs.build(code).x
     lg = LiftedGraph.from_circulant(cg.table, cg.P)
@@ -254,4 +256,10 @@ def test_one_dimensional_group_matches_circulant_kernel(cuda_device):
         v_l, it_l = run(lg, syn, arg, 60, 10)
         torch.cuda.synchronize()
         assert_same(v_l, v_c)
-        assert torch.equal(it_l, it_c)
+        if run is bp_cuda.bp_run:
+            assert torch.equal(it_l, it_c)
+        else:
+            assert int(it_c.max()) == int(it_l.max())
+            assert bool((it_c <= it_l).all())
+            tiles = it_c.reshape(-1, 16).amax(dim=1)
+            assert torch.equal(tiles.repeat_interleave(16), it_l)

@@ -3,10 +3,15 @@
 
 On a machine without a GPU the wrappers must import (no nvcc needed), send
 CPU tensors to the plain version without counting a launch, hand
-``P >= WIDE_MIN_P`` to the wide route, and reject bad input.  The kernel is
-compared with the plain version bit for bit, damped and undamped, by the
-``cuda``-marked tests, which run only where there is a card.
+``P >= WIDE_MIN_P`` to the wide route, reject bad input, and plan each
+lane's arrays into the shared memory a CTA may take.  The kernel is
+compared with the plain version bit for bit, damped and undamped, and each
+lane's ``iters`` with the plain count of that lane alone
+(``min_sum.min_sum_run_lanes``), by the ``cuda``-marked tests, which run
+only where there is a card.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -22,6 +27,9 @@ from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
 from qec_ldpc_tpu_torch.sampling.errors import sample_weight_w_errors
 
 LLR = min_sum.prior_llr(np.float32(2.0 / 3.0) * np.float32(0.01))
+
+#: the shared memory an H100's CTA may take with the opt-in (227 KB)
+H100_SMEM = 232448
 
 # one intra-op thread: the suite runs in several worker processes at once
 torch.set_num_threads(1)
@@ -124,14 +132,82 @@ def test_each_kernel_builds_its_own_library():
     assert len(paths) == 3
 
 
+def aligned(floats):
+    """A slab array's length in floats: each array starts 16-byte aligned."""
+    return -(-floats // 4) * 4
+
+
+def test_plan_keeps_the_main_path_on_chip():
+    """[[610,61]] (K2's main path, relay's damping included) and the P=1051
+    probe's X graph hold every array in shared memory; the probe's Z graph
+    keeps V there and puts its check state in the lane's slab; P=4201 puts V
+    in the slab.  Every plan fits a CTA's shared memory."""
+    g610 = CodeGraphs.build(construct_code(4, 5, 10, 61, 9, 49))
+    for graph in (g610.x, g610.z):
+        for damped in (False, True):
+            pl = min_sum_cuda.plan(graph, damped, H100_SMEM)
+            assert (pl.v_shared, pl.state_shared, pl.slab_floats) == (True, True, 0)
+            assert pl.damping_shared == damped and pl.threads == 320
+    probes = {}
+    for P in (1051, 4201):
+        s, t = find_code_params(4, 5, 10, P)[0]
+        probes[P] = CodeGraphs.build(construct_code(4, 5, 10, P, s, t))
+    x, z = probes[1051].x, probes[1051].z
+    assert min_sum_cuda.plan(x, False, H100_SMEM).slab_floats == 0
+    assert min_sum_cuda.plan(x, True, H100_SMEM).slab_floats == x.num_edges
+    pz = min_sum_cuda.plan(z, False, H100_SMEM)
+    assert pz.v_shared and not pz.state_shared
+    # {min1, min2} and meta, each array 16-byte aligned
+    state_floats = aligned(2 * z.num_checks) + aligned(z.num_checks)
+    assert pz.slab_floats == state_floats and pz.threads == 1024
+    p4 = min_sum_cuda.plan(probes[4201].z, True, H100_SMEM)
+    assert not p4.v_shared and not p4.damping_shared
+    for graph in (x, z, probes[4201].x, probes[4201].z, g610.x):
+        for damped in (False, True):
+            pl = min_sum_cuda.plan(graph, damped, H100_SMEM)
+            assert pl.smem_bytes <= H100_SMEM
+            assert pl.threads % 32 == 0 and 128 <= pl.threads <= 1024
+
+
+@pytest.mark.parametrize("limit", [48 * 1024, 120 * 1024, H100_SMEM])
+def test_plan_follows_the_device_limit(limit):
+    """A device that lets a CTA take less shared memory gets the same
+    kernel with more of the lane in its slab: the arrays are placed in
+    order while they fit, and what stays on chip never exceeds the limit."""
+    graph = CodeGraphs.build(construct_code(4, 5, 10, 521, 25, 1)).z
+    v_bytes = 4 * aligned(graph.num_edges)
+    state_bytes = 4 * (aligned(2 * graph.num_checks) + aligned(graph.num_checks))
+    syn_bytes = 4 * aligned(-(-graph.num_checks // 4))
+    for damped in (False, True):
+        pl = min_sum_cuda.plan(graph, damped, limit)
+        assert pl.smem_bytes <= limit
+        assert pl.v_shared == (syn_bytes + v_bytes <= limit)
+        on_chip = syn_bytes + v_bytes * pl.v_shared
+        assert pl.state_shared == (on_chip + state_bytes <= limit)
+        on_chip += state_bytes * pl.state_shared
+        assert pl.damping_shared == (damped and on_chip + v_bytes <= limit)
+        slab = ((not pl.v_shared) * v_bytes + (not pl.state_shared) * state_bytes
+                + (damped and not pl.damping_shared) * v_bytes)
+        assert pl.slab_floats * 4 == slab
+
+
+def test_launcher_signature_matches_argtypes():
+    src = (build.CSRC_DIR / "min_sum.cu").read_text()
+    sig = re.search(r'extern "C" int qec_min_sum\(([^)]*)\)', src).group(1)
+    assert len(sig.split(",")) == len(min_sum_cuda.ARGTYPES)
+
+
 def compare_on_cuda(graph, syn, max_iters, check_every, damping=None):
+    """Kernel vs plain: messages bit for bit, and each lane's ``iters`` the
+    plain count of that lane alone."""
     v, iters = min_sum_cuda.min_sum_run(graph, syn, LLR, max_iters,
                                         check_every, damping=damping)
-    v_p, n_p = min_sum.min_sum_run(graph, syn, LLR, max_iters, check_every,
-                                   damping=damping)
+    v_p, lanes_p = min_sum.min_sum_run_lanes(graph, syn, LLR, max_iters,
+                                             check_every, damping=damping)
     torch.cuda.synchronize()
     assert_same(v, v_p)
-    assert int(iters.max()) == int(n_p)
+    assert torch.equal(iters, lanes_p)
+    return iters
 
 
 @pytest.mark.cuda
@@ -140,6 +216,8 @@ def compare_on_cuda(graph, syn, max_iters, check_every, damping=None):
     ((4, 5, 10, 61, 9, 49), 15, 100, 101, False),
     ((4, 5, 10, 61, 9, 49), 40, 100, 10, True),
     ((3, 3, 6, 7, 2, 3), 3, 30, 31, False),
+    ((4, 5, 10, 521, 25, 1), 220, 30, 10, False),
+    ((4, 5, 10, 521, 25, 1), 220, 30, 10, True),
 ])
 def test_kernel_matches_plain_on_cuda(cuda_device, code, weight, max_iters,
                                       check_every, damped):
@@ -150,6 +228,55 @@ def test_kernel_matches_plain_on_cuda(cuda_device, code, weight, max_iters,
         before = min_sum_cuda.launches
         compare_on_cuda(graph, syn, max_iters, check_every, damping)
         assert min_sum_cuda.launches == before + 1
+
+
+def relay_shaped(graph, n, batch, device, heavy=24, seed=5):
+    """A relay retry's batch: most lanes solved (a zero syndrome), a few
+    W=40 lanes."""
+    syn = syndrome(graph, n, 40, batch, device, seed=seed)
+    keep = torch.zeros(batch, dtype=torch.bool, device=device)
+    keep[torch.randperm(batch, device=device)[:heavy]] = True
+    return torch.where(keep[None, :], syn, 0).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("damped", [False, True], ids=["undamped", "damped"])
+def test_relay_shaped_batch_on_cuda(cuda_device, damped):
+    """Mostly zero syndromes and a few W=40 lanes: bit for bit, and the
+    solved lanes stop after their first test while the few run on."""
+    graphs = CodeGraphs.build(construct_code(4, 5, 10, 61, 9, 49))
+    for graph in (graphs.x, graphs.z):
+        syn = relay_shaped(graph, graphs.code.n, 2048, cuda_device)
+        damping = gammas(graph, 2048, cuda_device) if damped else None
+        iters = compare_on_cuda(graph, syn, 100, 10, damping)
+        assert int((iters == 1).sum()) >= 2048 - 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 17, 16384])
+def test_batches_on_cuda(cuda_device, batch):
+    graphs = CodeGraphs.build(construct_code(4, 5, 10, 61, 9, 49))
+    syn = syndrome(graphs.x, graphs.code.n, 40, batch, cuda_device)
+    compare_on_cuda(graphs.x, syn, 100, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("damped", [False, True], ids=["undamped", "damped"])
+def test_kernel_on_every_device(damped):
+    """The shared-memory opt-in belongs to each device: a lane above 48 KB
+    (P = 521, 83 KB of V) decodes bit for bit on every visible card, each
+    planned from its own limit, in a process that launched on card 0 first."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    graphs = CodeGraphs.build(construct_code(4, 5, 10, 521, 25, 1))
+    for index in range(torch.cuda.device_count()):
+        device = torch.device("cuda", index)
+        syn = syndrome(graphs.z, graphs.code.n, 220, 256, device)
+        damping = gammas(graphs.z, 256, device) if damped else None
+        pl = min_sum_cuda.plan(graphs.z, damped, min_sum_cuda.smem_optin(index))
+        assert pl.smem_bytes > 48 * 1024
+        with torch.cuda.device(device):
+            compare_on_cuda(graphs.z, syn, 30, 10, damping)
 
 
 @pytest.mark.cuda
@@ -166,3 +293,20 @@ def test_wide_route_matches_plain_on_cuda(cuda_device, P):
         compare_on_cuda(graph, syn, 20, 21)
         compare_on_cuda(graph, syn, 100, 10)
         assert min_sum_cuda.wide_launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [64, 2048])
+@pytest.mark.parametrize("damped", [False, True], ids=["undamped", "damped"])
+def test_wide_route_largest_lane_on_cuda(cuda_device, batch, damped):
+    """The P=1051 Z graph, the largest lane of the K4 route's main path
+    (its check state in the lane's global slab; damped, the damping too)."""
+    s, t = find_code_params(4, 5, 10, 1051)[0]
+    graphs = CodeGraphs.build(construct_code(4, 5, 10, 1051, s, t))
+    weight = round(15 * graphs.code.n / 610)
+    syn = syndrome(graphs.z, graphs.code.n, weight, batch, cuda_device)
+    damping = gammas(graphs.z, batch, cuda_device) if damped else None
+    before = min_sum_cuda.wide_launches
+    compare_on_cuda(graphs.z, syn, 20, 21, damping)
+    compare_on_cuda(graphs.z, syn, 100, 10, damping)
+    assert min_sum_cuda.wide_launches == before + 2
