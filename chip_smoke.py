@@ -19,8 +19,15 @@ exit) if any phase fails:
              at once, and prints ptxas's register and spill lines
   3. check   K1 (sum-product) vs the plain PyTorch BP on the card:
              [[610,61]] X and Z at batch 2048, early exit and fixed 100
-             iterations, and the [[42]] code at 30 fixed iterations
-  4. time    K1: fixed-work X decode at batch 2048, kernel vs plain
+             iterations, the [[42]] code at 30 fixed iterations, the
+             [[5210,521]] X and Z graphs at batch 1024 (30 iterations, early
+             exit: phase 20's shape) and the P=1051 probe code's X and Z at
+             10 fixed iterations (E in the lane's global slab).  K1 counts
+             each lane's own iterations: every lane's count must equal the
+             plain count of that lane alone
+  4. time    K1: fixed-work X decode at batch 2048, kernel vs plain; under
+             early exit on the headline's W=15 X and Z batches, beside a
+             bound from the executed lane-iterations
   5. main    sum-product run_monte_carlo on the headline workload, 64
              chunks of 2048, after a warm-up that may synchronise with the
              host only once per group of chunks; every chunk must launch K1
@@ -100,11 +107,15 @@ exit) if any phase fails:
  18. check   K8 (one graph-sharded min-sum step) vs its plain version on
              every shard position of the [[5210,521]] X (B=4) and Z (B=5)
              graphs at G=2 and G=5 and of the [[610,61]] X graph at G=2,
-             batch 1024 (phase 20's lanes per rank) and 2048, random V with
-             planted +-0.0, NaN and +-inf, half the lanes done, last 0 and 1
+             random V with planted +-0.0, NaN and +-inf, half the lanes
+             done, last 0 and 1,
+             at batch 256, 1024 (phase 20's lanes per rank) and 2048 with
+             the plan's launch shape, and at 1024 with every launch shape of
+             K8_SHAPES on the [[5210,521]] G=2 shards
  19. time    K8: one step of shard 0 of 2 of the [[5210,521]] X graph at
-             batch 256, 1024 and 2048, kernel vs plain, beside its bound;
-             the kernels line reports batch 1024
+             batch 256, 1024 and 2048, kernel vs plain, beside its bound,
+             and every launch shape of K8_SHAPES in turns; the kernels line
+             reports batch 1024
  20. mesh    ranks spawned on the one card over gloo (workloads.py): at
              (data=2) the headline sum-product through K1 (bench.py's gate),
              then min-sum, layered and sum-product on [[5210,521]] (W=220,
@@ -253,6 +264,8 @@ PROBE_P = 1051
 PROBE_ITERS = 10
 PROBE_CHUNKS = 4
 PROBE_CORRECTED = (1861, 2048)
+# K1 is held to plain on the probe code at this batch (its E in the slab)
+PROBE_BP_BATCH = 512
 # the JAX package's tuning run at the relay setting (RELAY_*)
 RELAY_BP_FAILURES = (509, 12288)
 RELAY_REPAIRED = (375, 509)  # repair rate 0.7367
@@ -318,6 +331,11 @@ PEAK_INT32_OPS = 132 * 64 * 1.98e9
 # K7 is timed on this many failed-lane inputs (the failed lanes of one
 # phase-14 decode, repeated)
 OSD_TIMED_LANES = 1024
+# K8's launch shapes held to plain in phase 18 and timed in phase 19:
+# (lanes per CTA, partials folded into the variable phase); at 16 lanes the
+# [[5210,521]] state is in the CTA's global slab
+K8_SHAPES = ((2, False), (4, False), (4, True), (8, False), (16, False),
+             (16, True))
 # the relay-shaped batches of phase 6 keep one lane in this many (the W=40
 # min-sum decode leaves ~4% of lanes to the retries)
 RELAY_SHAPED_EVERY = 24
@@ -488,18 +506,24 @@ def flag_mismatches(got, want) -> int:
 
 
 def compare_bp(graph, syndrome, prior: np.float32, cfg: BPConfig):
-    """K1 vs plain BP on one graph."""
+    """K1 (K6 on a lifted graph) vs plain BP on one graph.  K1 counts each
+    lane's own iterations: every lane's count must equal the plain count of
+    that lane alone; K6 counts per tile, so its maximum must equal the plain
+    loop's."""
     v_k, it_k = bp_cuda.bp_run(graph, syndrome, prior, cfg.max_iters,
                                cfg.check_every, cfg.conv_low, cfg.conv_high)
-    v_p, n_p = sum_product.bp_run(
+    v_p, lanes_p = sum_product.bp_run_lanes(
         graph, syndrome, torch.tensor(prior, device=syndrome.device),
         cfg.max_iters, cfg.check_every, cfg.conv_low, cfg.conv_high)
     torch.cuda.synchronize()
     mism, err, nans = bit_mismatches(v_k, v_p)
     mism += flag_mismatches(decide(graph, v_k, syndrome, cfg),
                             decide(graph, v_p, syndrome, cfg))
-    mism += int(int(it_k.max()) != int(n_p))
-    return mism, err, int(n_p), nans
+    if isinstance(graph, CirculantGraph):
+        mism += int((it_k != lanes_p).sum())
+    else:
+        mism += int(int(it_k.max()) != int(lanes_p.max()))
+    return mism, err, int(lanes_p.max()), nans
 
 
 def compare_min_sum(graph, syndrome, llr: float, cfg: BPConfig, damping=None):
@@ -1044,9 +1068,12 @@ def k8_bound(router: ShardRouter, batch: int) -> tuple[float, str]:
 
 
 def check_k8(device, g610: CodeGraphs, g5210: CodeGraphs, llr: float) -> float:
-    """Phase 18: K8 vs plain on every shard position; returns the largest
-    finite |kernel - plain| (0 when bit for bit)."""
+    """Phase 18: K8 vs plain on every shard position at every batch of
+    K8_BATCHES with the plan's launch shape, and at the main path's batch
+    with every shape of K8_SHAPES on the [[5210,521]] G=2 shards; returns
+    the largest finite |kernel - plain| (0 when bit for bit)."""
     alpha = BPConfig().min_sum_alpha
+    limit = min_sum_cuda.smem_optin(device.index)
     worst = 0.0
     for code, side, graph, G in (("[[5210,521]]", "X", g5210.x, 2),
                                  ("[[5210,521]]", "X", g5210.x, 5),
@@ -1054,13 +1081,20 @@ def check_k8(device, g610: CodeGraphs, g5210: CodeGraphs, llr: float) -> float:
                                  ("[[5210,521]]", "Z", g5210.z, 5),
                                  ("[[610,61]]", "X", g610.x, 2)):
         mism = nans = 0
+        shapes = set()
         for g in range(G):
             router = ShardRouter(graph, G, g)
-            for batch in (SHARDED_BATCH, BATCH):
+            runs = [(batch, None) for batch in K8_BATCHES]
+            if code == "[[5210,521]]" and G == 2:
+                runs += [(SHARDED_BATCH, sharded_step_cuda.plan(router, limit, *s))
+                         for s in K8_SHAPES]
+            for batch, shape in runs:
                 args = k8_inputs(router, batch, device, 180 + 10 * G + g, True)
+                shapes.add(sharded_step_cuda.plan(router, limit) if shape is None
+                           else shape)
                 for last in (0, 1):
                     got = sharded_step_cuda.sharded_min_sum_step(
-                        router, llr, last, *args, alpha)
+                        router, llr, last, *args, alpha, shape)
                     want = sharded_step_cuda.sharded_min_sum_step_plain(
                         router, llr, last, *args, alpha)
                     torch.cuda.synchronize()
@@ -1069,18 +1103,28 @@ def check_k8(device, g610: CodeGraphs, g5210: CodeGraphs, llr: float) -> float:
                         mism, nans, worst = mism + m, nans + n, max(worst, err)
         say("check", kernel="sharded_min_sum_step", code=code, graph=side,
             G=G, Lc=graph.L // G, shards=G, last="0,1",
-            batch=f"{SHARDED_BATCH},{BATCH}", nan_entries=nans,
+            batch=",".join(map(str, K8_BATCHES)), nan_entries=nans,
+            shapes=json.dumps(sorted(shape_label(s) for s in shapes)),
             mismatches=mism)
         check(mism == 0, f"K8 disagrees with its plain version ({code} "
                          f"{side} G={G})")
     return worst
 
 
+def shape_label(shape) -> str:
+    """A K8 launch shape as lanes/route/placement, e.g. 8/read/smem."""
+    return (f"{shape.lanes}/{'fold' if shape.fold else 'read'}/"
+            f"{'slab' if shape.slab_bytes else 'smem'}")
+
+
 def time_k8(device, g5210: CodeGraphs, llr: float) -> dict:
     """Phase 19: one step of shard 0 of 2 of the [[5210,521]] X graph,
-    kernel vs plain in turns; batch -> (ms, plain ms, bound ms, bound_by)."""
+    kernel (the plan's shape) vs plain in turns, then every shape of
+    K8_SHAPES in turns (forwards, then backwards); batch -> (ms, plain ms,
+    bound ms, bound_by)."""
     alpha = BPConfig().min_sum_alpha
     router = ShardRouter(g5210.x, SHARDED_GRAPH, 0)
+    limit = min_sum_cuda.smem_optin(device.index)
     out = {}
     for batch in K8_BATCHES:
         args = k8_inputs(router, batch, device, 190, False)
@@ -1092,8 +1136,18 @@ def time_k8(device, g5210: CodeGraphs, llr: float) -> dict:
             lambda: sharded_step_cuda.sharded_min_sum_step_plain(
                 router, llr, 0, *args, alpha),
             200, 10, batch=batch, graph="[[5210,521]] X shard 0 of 2",
+            shape=shape_label(sharded_step_cuda.plan(router, limit)),
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
         out[batch] = (k_ms, p_ms, bound_ms, bound_by)
+        shapes = [sharded_step_cuda.plan(router, limit, *s) for s in K8_SHAPES]
+        ms = {shape_label(s): [] for s in shapes}
+        for shape in shapes + shapes[::-1]:
+            ms[shape_label(shape)].append(round(time_ms(
+                lambda: sharded_step_cuda.sharded_min_sum_step(
+                    router, llr, 0, *args, alpha, shape), 200), 4))
+        say("time", kernel="sharded_min_sum_step shapes", batch=batch,
+            graph="[[5210,521]] X shard 0 of 2", ms=json.dumps(ms),
+            bound_ms=f"{bound_ms:.4f}")
     return out
 
 
@@ -1374,6 +1428,31 @@ def main() -> int:
     cfg42 = BPConfig(max_iters=30, check_every=31)
     cases += [("[[42]]", "X", "fixed", g42.x, s42[0], prior, cfg42),
               ("[[42]]", "Z", "fixed", g42.z, s42[1], prior, cfg42)]
+    # the P=521 code that phase 20's data-only mesh decodes through K1 (V
+    # and E of a lane in shared memory, one CTA per SM), and the P=1051
+    # probe code (E in the lane's global slab)
+    g5210 = CodeGraphs.build(construct_code(*SHARDED_CODE))
+    sigma, tau = find_code_params(4, 5, 10, PROBE_P)[0]
+    probe = CodeGraphs.build(construct_code(4, 5, 10, PROBE_P, sigma, tau))
+    probe_weight = round(15 * probe.code.n / 610)
+    s5210_bp = syndromes(g5210, SHARDED_WEIGHT, 21, device, batch=SHARDED_BATCH)
+    sp_bp = syndromes(probe, probe_weight, 22, device, batch=PROBE_BP_BATCH)
+    sp30 = BPConfig(max_iters=SHARDED_ITERS)
+    fixed10 = BPConfig(max_iters=10, check_every=11)
+    cases += [("[[5210,521]]", "X", "early_exit", g5210.x, s5210_bp[0], prior,
+               sp30),
+              ("[[5210,521]]", "Z", "early_exit", g5210.z, s5210_bp[1], prior,
+               sp30),
+              (f"P={PROBE_P}", "X", "fixed", probe.x, sp_bp[0], prior, fixed10),
+              (f"P={PROBE_P}", "Z", "fixed", probe.z, sp_bp[1], prior, fixed10)]
+    limit = min_sum_cuda.smem_optin(device.index)
+    placements = {f"{code} {side}": bp_cuda.plan(graph, limit)
+                  for code, side, _, graph, *_ in cases}
+    say("plan", kernel="bp_sum_product", smem_optin=limit, placements=json.dumps(
+        {k: [p.threads, p.v_shared, p.e_shared, p.smem_bytes, p.slab_floats]
+         for k, p in placements.items()}))
+    check(placements[f"P={PROBE_P} Z"].slab_floats > 0,
+          "the P=1051 check does not reach the slab")
     worst = {"bp_sum_product": run_checks("bp_sum_product", cases, compare_bp)}
 
     # 4. K1 time vs plain (fixed work, [[610,61]] X, batch 2048) --------------
@@ -1385,6 +1464,21 @@ def main() -> int:
         lambda: sum_product.bp_run(g610.x, s610[0], prior_t, MAX_ITERS,
                                    MAX_ITERS + 1),
         20, 3, graph="[[610,61]] X", iters=MAX_ITERS)}
+    # under early exit on the headline's own W=15 batches (a check every
+    # 10), beside a bound from the lane-iterations the run executed
+    for side, graph, syn in (("X", g610.x, s610[0]), ("Z", g610.z, s610[1])):
+        _, iters = bp_cuda.bp_run(graph, syn, prior, MAX_ITERS, 10)
+        lane_iters = int(iters.sum())
+        bound_ms, bound_by = bound(graph, BATCH, MAX_ITERS, "sum-product",
+                                   lane_iters=lane_iters)
+        time_pair(
+            "bp_sum_product early exit",
+            lambda: bp_cuda.bp_run(graph, syn, prior, MAX_ITERS, 10),
+            lambda: sum_product.bp_run(graph, syn, prior_t, MAX_ITERS, 10),
+            50, 1, graph=f"[[610,61]] {side} W={WEIGHT}",
+            lane_iters=lane_iters, max_lane_iters=int(iters.max()),
+            mean_lane_iters=f"{lane_iters / BATCH:.3f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
 
     # 5. the sum-product main path ---------------------------------------------
     phase("5 sum-product main path")
@@ -1431,7 +1525,6 @@ def main() -> int:
     # the graph-sharded workload's code, which the data-only mesh decodes
     # through K2 (P = 521: 1024 threads, all of a lane in shared memory;
     # damped, the damping in the lane's slab)
-    g5210 = CodeGraphs.build(construct_code(*SHARDED_CODE))
     s5210 = syndromes(g5210, SHARDED_WEIGHT, 19, device)
     ms30 = BPConfig(max_iters=SHARDED_ITERS, algorithm="min-sum")
     cases += [("[[5210,521]]", "X", "early_exit", g5210.x, s5210[0], llr, ms30),
@@ -1459,9 +1552,6 @@ def main() -> int:
     worst["layered_min_sum"] = run_checks("layered_min_sum", cases,
                                           compare_layered)
 
-    sigma, tau = find_code_params(4, 5, 10, PROBE_P)[0]
-    probe = CodeGraphs.build(construct_code(4, 5, 10, PROBE_P, sigma, tau))
-    probe_weight = round(15 * probe.code.n / 610)
     check(probe.x.P >= min_sum_cuda.WIDE_MIN_P, "probe code below WIDE_MIN_P")
     sp = syndromes(probe, probe_weight, 9, device)
     wide_fixed = BPConfig(max_iters=20, check_every=21, algorithm="min-sum")

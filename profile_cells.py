@@ -5,10 +5,12 @@
 
 Each cell is one ``run_monte_carlo`` workload of ``chip_smoke.py`` (the
 ``osd`` cell: ``run_monte_carlo_osd``), defined in ``workloads.py``, except
-``k8``: a loop of ``K8_STEPS`` graph-sharded min-sum steps (K8) of shard 0 of
-2 of the [[5210,521]] X graph at batch 1024 (the graph-sharded cell's lanes
-per rank) in one process, with no mesh, each step's partials fed back as the
-other shard's.  For
+two kernels alone: ``k1``, ``K1_DECODES`` fixed-work sum-product decodes (K1,
+100 iterations of the [[610,61]] X graph at batch 2048), and ``k8``, a loop
+of ``K8_STEPS`` graph-sharded min-sum steps (K8) of shard 0 of 2 of the
+[[5210,521]] X graph at batch 1024 (the graph-sharded cell's lanes per rank;
+``k8-256`` and ``k8-2048`` at those batches) in one process, with no mesh,
+each step's partials fed back as the other shard's.  For
 each: a warm-up run, ``RUNS`` (3) unprofiled runs timed on the host clock
 (wall per chunk, samples/s), then one run under ``torch.profiler`` with CPU
 and CUDA activities.  From the profiled run it reports the device busy time
@@ -61,6 +63,7 @@ from workloads import (
 )
 
 RUNS = 3  # unprofiled timed runs per cell
+K1_DECODES = 20  # fixed-work K1 decodes per run of the k1 cell
 
 # cell -> (code, error model, weight, p, config, chunks, relay retries,
 #          kernel names as the profiler shows them, the decode kernel first
@@ -86,7 +89,10 @@ CELLS = {
                     ("lifted_min_sum_kernel",)),
     "osd": ("610", "weight", OSD_WEIGHT, OSD_P, MIN_SUM, OSD_CHUNKS, 0,
             ("min_sum_kernel", "osd0_kernel"), OSD_BATCH, OSD_LAM),
-    "k8": ("5210",),
+    "k1": ("610",),
+    "k8": ("5210", 1024),
+    "k8-256": ("5210", 256),
+    "k8-2048": ("5210", 2048),
 }
 
 
@@ -131,26 +137,62 @@ def device_profile(run, kernels: tuple):
     return walls, busy_us, sum(e.count for e in events), shares, result
 
 
-def profile_k8(device) -> dict:
-    """The ``k8`` cell: K8_STEPS steps of shard 0 of 2 of the [[5210,521]]
-    X graph at SHARDED_BATCH (imported here: earlier trees of the port lack
+def profile_k1(graphs: CodeGraphs, device) -> dict:
+    """The ``k1`` cell: K1_DECODES fixed-work decodes (MAX_ITERS iterations,
+    no convergence test after the first) of the [[610,61]] X graph at BATCH,
+    the kernel alone."""
+    from qec_ldpc_tpu_torch.kernels import bp_cuda
+    from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
+    from qec_ldpc_tpu_torch.sampling.errors import sample_weight_w_errors
+
+    xe, _ = sample_weight_w_errors(chunk_generator(7, 0, device),
+                                   graphs.code.n, WEIGHT, BATCH)
+    syn = graphs.x.syndrome(xe.to(torch.int32))
+    prior = float(torch.tensor(2.0 / 3.0, dtype=torch.float32)
+                  * torch.tensor(P_ERR, dtype=torch.float32))
+
+    def run():
+        for _ in range(K1_DECODES):
+            bp_cuda.bp_run(graphs.x, syn, prior, MAX_ITERS, MAX_ITERS + 1)
+        torch.cuda.synchronize()
+
+    walls, busy_us, ops, shares, _ = device_profile(
+        run, ("bp_sum_product_kernel",))
+    k1 = shares["bp_sum_product_kernel"]
+    return {
+        "cell": "k1",
+        "decodes": K1_DECODES,
+        "batch": BATCH,
+        "iterations": MAX_ITERS,
+        "wall_ms_per_decode": 1e3 * min(walls) / K1_DECODES,
+        "device_busy_ms_per_decode": 1e-3 * busy_us / K1_DECODES,
+        "decode_kernel": "bp_sum_product_kernel",
+        "decode_share_of_device": k1["share_of_device"],
+        "decode_ms_per_launch": k1["ms_per_launch"],
+        "decode_launches": k1["launches"],
+        "device_ops_per_decode": ops / K1_DECODES,
+    }
+
+
+def profile_k8(device, batch: int, name: str) -> dict:
+    """The ``k8`` cells: K8_STEPS steps of shard 0 of 2 of the [[5210,521]]
+    X graph at ``batch`` (imported here: earlier trees of the port lack
     K8)."""
     from qec_ldpc_tpu_torch.decoder.min_sum import prior_llr
     from qec_ldpc_tpu_torch.kernels import sharded_step_cuda
     from qec_ldpc_tpu_torch.parallel.graph_sharded import ShardRouter
-    from workloads import (K8_STEPS, SHARDED_BATCH, SHARDED_CODE,
-                           SHARDED_GRAPH, SHARDED_P)
+    from workloads import K8_STEPS, SHARDED_CODE, SHARDED_GRAPH, SHARDED_P
 
     graph = CodeGraphs.build(construct_code(*SHARDED_CODE)).x
     router = ShardRouter(graph, SHARDED_GRAPH, 0)
     gen = torch.Generator(device=device)
     gen.manual_seed(19)
     checks = router.B * router.P
-    v0 = torch.randn((router.Lc * checks, SHARDED_BATCH), generator=gen,
+    v0 = torch.randn((router.Lc * checks, batch), generator=gen,
                      device=device) * 4
-    syn = torch.where(torch.rand((checks, SHARDED_BATCH), generator=gen,
+    syn = torch.where(torch.rand((checks, batch), generator=gen,
                                  device=device) < 0.3, -1.0, 1.0)
-    done = torch.zeros(SHARDED_BATCH, dtype=torch.bool, device=device)
+    done = torch.zeros(batch, dtype=torch.bool, device=device)
     llr = prior_llr(2.0 / 3.0 * SHARDED_P)
     part0 = sharded_step_cuda.local_partials(v0, router.Lc)
 
@@ -167,9 +209,9 @@ def profile_k8(device) -> dict:
     busy_ms = 1e-3 * busy_us / K8_STEPS
     k8 = shares["sharded_step_kernel"]
     return {
-        "cell": "k8",
+        "cell": name,
         "steps": K8_STEPS,
-        "batch": SHARDED_BATCH,
+        "batch": batch,
         "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
@@ -233,13 +275,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     graphs, logical = {}, {}
     for name in args.cells.split(","):
-        if name == "k8":
-            print(json.dumps(profile_k8(device)), flush=True)
+        if name.startswith("k8"):
+            print(json.dumps(profile_k8(device, CELLS[name][1], name)),
+                  flush=True)
             continue
         code = CELLS[name][0]
         if code not in graphs:
             graphs[code] = build_graphs(code)
             logical[code] = make_rank_basis_test(graphs[code].code, device)
+        if name == "k1":
+            print(json.dumps(profile_k1(graphs[code], device)), flush=True)
+            continue
         print(json.dumps(profile_cell(name, graphs[code], logical[code], device)),
               flush=True)
     smi = subprocess.run(

@@ -163,20 +163,51 @@ def bp_run(
 
     The host reads the done mask only after a convergence test, the one
     place it can change."""
+    v, n, _ = _bp_loop(graph, syndrome, prior, max_iters, check_every,
+                       conv_low, conv_high)
+    return v, n
+
+
+def bp_run_lanes(
+    graph: CirculantGraph | LiftedGraph,
+    syndrome: torch.Tensor,
+    prior: torch.Tensor | float,
+    max_iters: int,
+    check_every: int = 10,
+    conv_low: float = 0.01,
+    conv_high: float = 0.99,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`bp_run` with each lane's own executed iteration count:
+    ``(v_final, lane_iters (batch,) int32)``, the iterations in which the
+    lane was not yet done.  Lanes decode independently and a done lane is
+    frozen, so a lane's count is what :func:`bp_run` gives for the lane run
+    alone, and their maximum is the batch run's count.  The reference the
+    sum-product kernel's per-lane ``iters`` is held to."""
+    v, _, lane_iters = _bp_loop(graph, syndrome, prior, max_iters,
+                                check_every, conv_low, conv_high)
+    return v, lane_iters
+
+
+def _bp_loop(graph, syndrome, prior, max_iters, check_every, conv_low,
+             conv_high):
+    """The loop of :func:`bp_run`: ``(v_final, iters_executed, per-lane
+    executed iterations)``."""
     batch = syndrome.shape[-1]
     device = syndrome.device
     sign = graph.expand_checks(0.5 - syndrome.to(torch.float32))
     prior = torch.as_tensor(prior, dtype=torch.float32, device=device)
     v = prior.expand(graph.num_edges, batch).clone()
     done = torch.zeros(batch, dtype=torch.bool, device=device)
+    lane_iters = torch.zeros(batch, dtype=torch.int32, device=device)
     all_done = False
     n = 0
     while n < max_iters and not all_done:
         e = cn_update(graph, v, sign)
         v_new = vn_update(graph, e, prior, last=(n == max_iters - 1))
         v = torch.where(done[None, :], v, v_new)
+        lane_iters += ~done
         if n % check_every == 0:
             done = done | ~_not_converged_mask(v, conv_low, conv_high)
             all_done = bool(done.all())
         n += 1
-    return v, torch.full((), n, dtype=torch.int32, device=device)
+    return v, torch.full((), n, dtype=torch.int32, device=device), lane_iters

@@ -1,12 +1,16 @@
 """Sum-product BP through the hand-written CUDA kernel (csrc/bp_sum_product.cu).
 
 The port of ``qec_ldpc_tpu/kernels/bp_pallas.py::bp_run_pallas``: the whole
-BP loop of one circulant graph in one launch.  :func:`bp_run` checks its
-arguments, allocates the outputs, and launches the kernel on the current
-CUDA stream for a CUDA tensor; for a CPU tensor it runs the plain version,
-``decoder/sum_product.bp_run``.  There is no fallback: a CUDA tensor either
-runs the kernel or raises.  A ``LiftedGraph`` goes to
-``lifted_bp_cuda.lifted_bp_run`` (K6's kernel), as the JAX dispatch does.
+BP loop of one circulant graph in one launch, one lane per CTA.
+:func:`bp_run` checks its arguments, allocates the outputs and the scratch,
+and launches the kernel on the current CUDA stream for a CUDA tensor; for a
+CPU tensor it runs the plain version, ``decoder/sum_product.bp_run``.  There
+is no fallback: a CUDA tensor either runs the kernel or raises (a launch the
+card refuses, for shared memory or threads, raises too).  :func:`plan`
+decides per graph and device which of a lane's message arrays fit in shared
+memory and which go to a per-lane slab of global scratch.  A
+``LiftedGraph`` goes to ``lifted_bp_cuda.lifted_bp_run`` (K6's kernel), as
+the JAX dispatch does.
 
 ``launches`` counts kernel launches (never the plain path), so a run can
 show that its decodes went through the kernel.
@@ -15,6 +19,7 @@ show that its decodes went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -23,7 +28,7 @@ import torch
 from qec_ldpc_tpu_torch.decoder import sum_product
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
 from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
-from qec_ldpc_tpu_torch.kernels import build, launch, lifted_bp_cuda
+from qec_ldpc_tpu_torch.kernels import build, launch, lifted_bp_cuda, min_sum_cuda
 
 #: the kernel's compile-time degree limits (kMaxB / kMaxL in the source)
 MAX_VAR_DEGREE = 8
@@ -35,19 +40,61 @@ SOURCES = ("bp_sum_product.cu",)
 launches = 0
 
 
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Where one lane's V and E live, and the CTA size: what the launcher
+    is given (the kernel lays the arrays out in :func:`plan`'s order)."""
+
+    threads: int
+    v_shared: bool
+    e_shared: bool
+    smem_bytes: int      # dynamic shared memory per CTA
+    slab_floats: int     # float32 global scratch per lane
+
+
+def plan(graph: CirculantGraph, smem_limit: int) -> Plan:
+    """The kernel's placement for ``graph`` on a device whose CTA may take
+    ``smem_limit`` bytes of shared memory (its opt-in limit, 227 KB on an
+    H100): the syndrome bits (a byte per check) always in shared memory,
+    then, while they fit, V and E (4 bytes per edge each); the rest in the
+    lane's global slab.  Each array starts 16-byte aligned, in shared memory
+    and in the slab.  Threads: one per two variables, a multiple of 32 in
+    [128, 1024], so that an iteration is one or two passes over the lane's
+    checks and variables."""
+    msg_bytes = _align16(4 * graph.num_edges)
+    used, slab_bytes = _align16(graph.num_checks), 0
+    placed = []
+    for _ in ("V", "E"):
+        fits = used + msg_bytes <= smem_limit
+        used += msg_bytes if fits else 0
+        slab_bytes += 0 if fits else msg_bytes
+        placed.append(fits)
+    threads = min(1024, max(128, -(-graph.num_vars // 64) * 32))
+    return Plan(threads, *placed, used, slab_bytes // 4)
+
+
+#: the C types of ``qec_bp_sum_product``'s parameters, in order
+ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.POINTER(ctypes.c_int32),
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+]
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The built library with the launcher's C signature declared."""
     lib = build.load("qec_bp", SOURCES)
-    fn = lib.qec_bp_sum_product
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_int32),
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    lib.qec_bp_sum_product.argtypes = ARGTYPES
+    lib.qec_bp_sum_product.restype = ctypes.c_int
     return lib
 
 
@@ -63,10 +110,12 @@ def bp_run(
     """Returns ``(v_final (num_edges, batch) f32, iters (batch,) int32)``.
 
     Per lane, ``v_final`` equals the plain ``sum_product.bp_run`` bit for
-    bit.  ``iters`` is each lane's executed iteration count: the kernel
-    early-exits per tile of lanes, so a lane counts its tile's iterations;
-    the maximum over lanes is the plain loop's count.  Lifted graphs go to
-    ``lifted_bp_cuda.lifted_bp_run``."""
+    bit.  ``iters``: on the kernel, each lane's own executed iterations,
+    which is what the plain loop counts for that lane run alone
+    (``sum_product.bp_run_lanes``); its maximum is the plain loop's count for
+    the batch.  (JAX's Pallas kernel counts per 128-lane tile.)  On a CPU
+    tensor every lane gets the plain loop's count, as JAX's XLA path does.
+    Lifted graphs go to ``lifted_bp_cuda.lifted_bp_run``."""
     global launches
     if isinstance(graph, LiftedGraph):
         return lifted_bp_cuda.lifted_bp_run(graph, syndrome, prior, max_iters,
@@ -81,17 +130,21 @@ def bp_run(
         return v, n.expand(batch).clone()
     launch.check_cuda_args(graph, syndrome, MAX_VAR_DEGREE, MAX_CHECK_DEGREE)
     lib = _library()
+    pl = plan(graph, min_sum_cuda.smem_optin(syndrome.device.index))
     v = torch.empty((graph.num_edges, batch), dtype=torch.float32,
                     device=syndrome.device)
-    e = torch.empty_like(v)
+    scratch = (torch.empty((batch * pl.slab_floats,), dtype=torch.float32,
+                           device=syndrome.device) if pl.slab_floats else None)
     iters = torch.empty((batch,), dtype=torch.int32, device=syndrome.device)
     with torch.cuda.device(syndrome.device):
         err = lib.qec_bp_sum_product(
-            syndrome.data_ptr(), v.data_ptr(), e.data_ptr(), iters.data_ptr(),
+            syndrome.data_ptr(), v.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), iters.data_ptr(),
             launch.shift_table(graph), graph.B, graph.L, graph.P, batch,
             float(prior32), max_iters, check_every,
             float(np.float32(conv_low)), float(np.float32(conv_high)),
-            launch.stream_of(syndrome.device))
+            pl.threads, pl.v_shared, pl.e_shared, pl.smem_bytes,
+            pl.slab_floats, launch.stream_of(syndrome.device))
     launch.raise_on_error("qec_bp_sum_product", err)
     launches += 1
     return v, iters

@@ -119,7 +119,8 @@ def _library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def smem_optin(index: int) -> int:
     """The shared memory a CTA may take on CUDA device ``index`` with the
-    opt-in, in bytes (queried once per device)."""
+    opt-in, in bytes (queried once per device); the sum-product and sharded
+    step plans (``bp_cuda``, ``sharded_step_cuda``) read it too."""
     limit = _library().qec_min_sum_smem_optin(index)
     launch.raise_on_error("qec_min_sum_smem_optin", -min(limit, 0))
     return limit

@@ -3,17 +3,21 @@
 On a machine without a GPU the wrapper must import (no nvcc needed), send
 CPU tensors to the plain version without counting a launch, and reject bad
 input.  The kernel itself is compared with the plain version bit for bit by
-the ``cuda``-marked test, which runs only where there is a card.
+the ``cuda``-marked tests, which run only where there is a card, and each
+lane's ``iters`` with the plain count of that lane alone.
 """
+
+import re
 
 import numpy as np
 import pytest
 import torch
 
 from qec_ldpc_tpu_torch import construct_code
+from qec_ldpc_tpu_torch.codes import find_code_params
 from qec_ldpc_tpu_torch.decoder import sum_product
 from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs
-from qec_ldpc_tpu_torch.kernels import bp_cuda, build
+from qec_ldpc_tpu_torch.kernels import bp_cuda, build, min_sum_cuda
 from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
 from qec_ldpc_tpu_torch.sampling.errors import sample_weight_w_errors
 
@@ -31,6 +35,12 @@ def g42():
 def syndrome(graph, n, weight, batch, device):
     xe, _ = sample_weight_w_errors(chunk_generator(3, 0, device), n, weight, batch)
     return graph.syndrome(xe.to(torch.int32))
+
+
+def test_launcher_signature_matches_argtypes():
+    src = (build.CSRC_DIR / "bp_sum_product.cu").read_text()
+    sig = re.search(r'extern "C" int qec_bp_sum_product\(([^)]*)\)', src).group(1)
+    assert len(sig.split(",")) == len(bp_cuda.ARGTYPES)
 
 
 @pytest.fixture
@@ -100,19 +110,39 @@ def test_kernel_degree_limits_match_source():
     ((4, 5, 10, 61, 9, 49), 15, 100, 10),
     ((4, 5, 10, 61, 9, 49), 15, 100, 101),
     ((3, 3, 6, 7, 2, 3), 3, 30, 31),
+    ((4, 5, 10, 521, 25, 1), 220, 30, 10),
 ])
 def test_kernel_matches_plain_on_cuda(cuda_device, code, weight, max_iters,
                                       check_every):
+    """Messages bit for bit, and each lane's ``iters`` the plain count of
+    that lane alone (``bp_run_lanes``)."""
     graphs = CodeGraphs.build(construct_code(*code))
     for graph in (graphs.x, graphs.z):
         syn = syndrome(graph, graphs.code.n, weight, 1000, cuda_device)
-        before = bp_cuda.launches
-        v, iters = bp_cuda.bp_run(graph, syn, PRIOR, max_iters, check_every)
-        assert bp_cuda.launches == before + 1
-        v_p, n_p = sum_product.bp_run(graph, syn, torch.tensor(PRIOR, device=cuda_device),
-                                      max_iters, check_every)
-        torch.cuda.synchronize()
-        assert torch.equal(v.isnan(), v_p.isnan())
-        finite = ~v.isnan()
-        assert torch.equal(v.view(torch.int32)[finite], v_p.view(torch.int32)[finite])
-        assert int(iters.max()) == int(n_p)
+        compare_on_cuda(graph, syn, max_iters, check_every)
+
+
+def compare_on_cuda(graph, syn, max_iters, check_every):
+    before = bp_cuda.launches
+    v, iters = bp_cuda.bp_run(graph, syn, PRIOR, max_iters, check_every)
+    assert bp_cuda.launches == before + 1
+    v_p, lanes_p = sum_product.bp_run_lanes(
+        graph, syn, torch.tensor(PRIOR, device=syn.device), max_iters,
+        check_every)
+    torch.cuda.synchronize()
+    assert torch.equal(v.isnan(), v_p.isnan())
+    finite = ~v.isnan()
+    assert torch.equal(v.view(torch.int32)[finite], v_p.view(torch.int32)[finite])
+    assert torch.equal(iters, lanes_p)
+
+
+@pytest.mark.cuda
+def test_slab_route_matches_plain_on_cuda(cuda_device):
+    """P=1051: V in shared memory, E in the lane's global slab."""
+    s, t = find_code_params(4, 5, 10, 1051)[0]
+    graphs = CodeGraphs.build(construct_code(4, 5, 10, 1051, s, t))
+    graph = graphs.z
+    pl = bp_cuda.plan(graph, min_sum_cuda.smem_optin(cuda_device.index))
+    assert pl.v_shared and not pl.e_shared and pl.slab_floats > 0
+    syn = syndrome(graph, graphs.code.n, 26, 128, cuda_device)
+    compare_on_cuda(graph, syn, 10, 11)

@@ -6,18 +6,21 @@ CPU tensors to the plain version without counting a launch, and reject bad
 input.  The ``cuda``-marked tests hold the kernel to the plain version bit
 for bit on the card, with planted +-0.0, NaN and +-inf, half the lanes done
 and ``last`` 0 and 1, on every shard position of the [[42]] X graph at G=2
-and 3 and of the [[610,61]] and [[5210,521]] X graphs at G=2.  The plain
+and 3 and of the [[610,61]] and [[5210,521]] X graphs at G=2, and on every
+launch shape the plan can choose (lanes per CTA, the partials' route, the
+check state on chip or in the global slab).  The plain
 version is held to the JAX package in ``test_torch_sharded_step.py``.
 """
 
 import math
+import re
 
 import pytest
 import torch
 
 from qec_ldpc_tpu_torch import construct_code
 from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs
-from qec_ldpc_tpu_torch.kernels import sharded_step_cuda
+from qec_ldpc_tpu_torch.kernels import build, min_sum_cuda, sharded_step_cuda
 from qec_ldpc_tpu_torch.parallel.graph_sharded import ShardRouter
 
 CODES = {"42": (3, 3, 6, 7, 2, 3), "610": (4, 5, 10, 61, 9, 49),
@@ -117,6 +120,12 @@ def test_shard_router_needs_a_dividing_axis():
         ShardRouter(graph, 3, 0)
 
 
+def test_launcher_signature_matches_argtypes():
+    src = (build.CSRC_DIR / "sharded_min_sum_step.cu").read_text()
+    sig = re.search(r'extern "C" int qec_sharded_min_sum_step\(([^)]*)\)', src).group(1)
+    assert len(sig.split(",")) == len(sharded_step_cuda.ARGTYPES)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -138,3 +147,29 @@ def test_kernel_bit_exact_vs_plain(router, last, cuda_device):
     for a, b in zip(got, want):
         assert_same(a.cpu(), b.cpu())
     assert got[0].isnan().any() and got[0].isinf().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,fold", [(1, False), (2, True), (4, False),
+                                        (4, True), (8, False), (16, False),
+                                        (16, True), (32, False)])
+@pytest.mark.parametrize("shard", [("5210", 2, 1), ("42", 3, 2)],
+                         ids=lambda c: f"{c[0]}-G{c[1]}-g{c[2]}")
+def test_every_launch_shape_bit_exact(shard, lanes, fold, cuda_device):
+    """Every lanes-per-CTA and partials route the plan can choose (16 and
+    32 lanes put [[5210,521]]'s state in the global slab), at a batch that
+    is no multiple of the lanes."""
+    code_name, G, g = shard
+    router = ShardRouter(CodeGraphs.build(construct_code(*CODES[code_name])).x,
+                         G, g)
+    shape = sharded_step_cuda.plan(
+        router, min_sum_cuda.smem_optin(cuda_device.index), lanes, fold)
+    args = [a.to(cuda_device) for a in inputs(router, 100, 13)]
+    for last in (0, 1):
+        got = sharded_step_cuda.sharded_min_sum_step(router, LLR, last, *args,
+                                                     ALPHA, shape)
+        want = sharded_step_cuda.sharded_min_sum_step_plain(router, LLR, last,
+                                                            *args, ALPHA)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert_same(a.cpu(), b.cpu())
