@@ -16,7 +16,7 @@ exit) if any phase fails:
   2. build   compiles the seven CUDA sources (csrc/bp_sum_product.cu,
              min_sum.cu, layered_min_sum.cu, lifted_min_sum.cu,
              lifted_bp.cu, osd0.cu, sharded_min_sum_step.cu) with nvcc, all
-             at once, and prints ptxas's register and spill lines
+             at once, and prints ptxas's registers and spills per kernel
   3. check   K1 (sum-product) vs the plain PyTorch BP on the card:
              [[610,61]] X and Z at batch 2048, early exit and fixed 100
              iterations, the [[42]] code at 30 fixed iterations, the
@@ -27,7 +27,11 @@ exit) if any phase fails:
              plain count of that lane alone
   4. time    K1: fixed-work X decode at batch 2048, kernel vs plain; under
              early exit on the headline's W=15 X and Z batches, beside a
-             bound from the executed lane-iterations
+             bound from the executed lane-iterations.  Every early-exit
+             reading here and in phases 7 and 11 also gives the kernel's
+             device time from torch.profiler: a launch of tens of
+             microseconds is shorter than the wrapper's host work, so CUDA
+             events around back-to-back calls read the host's launch rate
   5. main    sum-product run_monte_carlo on the headline workload, 64
              chunks of 2048, after a warm-up that may synchronise with the
              host only once per group of chunks; every chunk must launch K1
@@ -38,14 +42,22 @@ exit) if any phase fails:
              damped run with random gammas, and relay-shaped batches (one
              W=40 lane in 24, the others solved), damped and undamped; K3
              (layered min-sum): [[610,61]] X and Z with a parity test every
-             sweep and 100 fixed sweeps, [[42]]; K4 (min-sum, P >= 768
+             sweep and 100 fixed sweeps, [[42]], the [[5210,521]] X and Z
+             graphs at batch 1024 (30 sweeps, a test every sweep: phase
+             20's shape), the P=1051 probe's X and Z at 10 fixed sweeps,
+             and every other placement (the state, then q and the state, in
+             the lane's slab on [[5210,521]] Z); K4 (min-sum, P >= 768
              route): the P=1051 probe code X and Z at batch 2048, fixed 20
              iterations and early exit, relay-shaped X, and relay-shaped Z
              damped; K2 on the [[5210,521]] X and Z graphs (30 iterations,
-             Z damped).  K2 and K4 count each lane's own iterations: every
-             lane's count must equal the plain count of that lane alone
+             Z damped).  K2, K3 and K4 count each lane's own iterations
+             (sweeps): every lane's count must equal the plain count of that
+             lane alone
   7. time    K2 100 iterations and K3 100 sweeps on [[610,61]] X, K4 20
              iterations on the P=1051 X graph, batch 2048, kernel vs plain;
+             K3's placements at P = 521 in turns, and K3 under early exit on the headline's W=15 X and Z batches
+             (a test every sweep) beside a bound from the executed
+             lane-iterations;
              K2 under early exit on W=40 [[610,61]] X batches, damped at
              2048 and undamped at 16,384, beside a bound from the executed
              lane-iterations; the osd cell's decode_batch with and without
@@ -67,9 +79,16 @@ exit) if any phase fails:
              iterations, K5 damped with random gammas, the d=32 toric code
              X and Z at 20 fixed iterations (P = 1024, which must not take
              the circulant wide route) and [[756,16,34]] X at 20 fixed
-             iterations
+             iterations; K5 also on the P=1051 and P=2081 probe codes' Z
+             graphs as lifted graphs, damped and undamped (its check state,
+             then its V, in the lane's slab).  K5 counts each lane's own
+             iterations: every lane's count must equal the plain count of
+             that lane alone; K6 counts its tile's (the maximum must agree)
  11. time    K5 and K6: 100 iterations on the gross X graph, batch 2048,
-             kernel vs plain
+             kernel vs plain; K5 under early exit on the gross min-sum
+             cell's X and Z batches (p = 0.01) and damped at the gross relay
+             cell's p = 0.03, beside bounds from the executed
+             lane-iterations
  12. main    run_monte_carlo on the gross code, depolarizing p = 0.01, 64
              chunks of 2048: min-sum held to the JAX package's record
              (benchmarks/results/bicycle_gross_r3.jsonl line 2) and
@@ -140,7 +159,8 @@ Phases 20 and 21 share one card between their ranks, and gloo stages every
 collective through host memory: their times are not multi-card numbers.
 
 A check passes with 0 mismatches: finite messages bit for bit, NaN masks,
-decisions, failure flags and the max iteration count.  The last four lines
+decisions, failure flags and the iteration counts (each lane's, or the
+maximum for K6).  The last four lines
 are the wall time of ``main``, the card's ``nvidia-smi`` name and power
 limit, a JSON object describing each kernel (with its bound: the larger of its float operations
 over 67 TFLOP/s and its bytes over 3.35 TB/s; K7's integer operations over
@@ -161,6 +181,7 @@ import warnings
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from qec_ldpc_tpu_torch import construct_code
 from qec_ldpc_tpu_torch.codes import find_code_params, known_bicycle_code, toric_code
@@ -175,6 +196,7 @@ from qec_ldpc_tpu_torch.decoder.decode import (
     syndrome_fail,
 )
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
+from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
 from qec_ldpc_tpu_torch.decoder.osd import OSDecoder
 from qec_ldpc_tpu_torch.decoder.osd_device import DeviceOSD0, ranking
 from qec_ldpc_tpu_torch.decoder.relay import relay_decode_batch
@@ -187,6 +209,7 @@ from qec_ldpc_tpu_torch.kernels import (
     lifted_min_sum_cuda,
     min_sum_cuda,
     osd0_cuda,
+    placement,
     sharded_step_cuda,
 )
 from qec_ldpc_tpu_torch import native
@@ -336,9 +359,26 @@ OSD_TIMED_LANES = 1024
 # [[5210,521]] state is in the CTA's global slab
 K8_SHAPES = ((2, False), (4, False), (4, True), (8, False), (16, False),
              (16, True))
+# K5's slab placements are held to plain at this batch in phase 10
+LIFTED_SLAB_BATCH = 128
 # the relay-shaped batches of phase 6 keep one lane in this many (the W=40
 # min-sum decode leaves ~4% of lanes to the retries)
 RELAY_SHAPED_EVERY = 24
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, spill) of each kernel in nvcc's -Xptxas=-v log,
+    the kernel by its mangled name (its template arguments included)."""
+    out, kernel, spill = [], "?", "no spill"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line.strip()
+            spill = "no spill"
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append((kernel, line.split("Used")[1].split()[0], spill))
+    return out
 
 
 def check(ok: bool, what: str) -> None:
@@ -436,6 +476,7 @@ def time_early_exit(device, g610: CodeGraphs, gen: torch.Generator) -> float:
             lambda: min_sum.min_sum_run(g610.x, syn, llr, MAX_ITERS, 10,
                                         damping=damping),
             reps, 1, batch=batch, graph="[[610,61]] X W=40", damped=damped,
+            device_kernel="min_sum_kernel",
             lane_iters=lane_iters, max_lane_iters=int(iters.max()),
             mean_lane_iters=f"{lane_iters / batch:.3f}",
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
@@ -454,6 +495,92 @@ def time_early_exit(device, g610: CodeGraphs, gen: torch.Generator) -> float:
         outputs_equal=same)
     check(same, "kernel_sort_lanes changed the decode's outputs")
     return worst
+
+
+def k3_placements(g5210: CodeGraphs) -> list:
+    """K3's placements besides its plans, checked in phase 6 and timed in
+    phase 7: (name, plan).  On the P=521 Z graph the state in the lane's
+    slab, then q and the state (plans for smaller limits)."""
+    syn, q, state = layered_cuda.lane_arrays(g5210.z)
+    return [
+        ("[[5210,521]] state slab",
+         layered_cuda.plan(g5210.z, syn + q)),
+        ("[[5210,521]] q+state slab", layered_cuda.plan(g5210.z, syn)),
+    ]
+
+
+def time_shapes(label: str, runs: list, reps: int, **fields) -> dict:
+    """Each (name, fn) of ``runs`` timed twice, in turns a, b, ..., b, a;
+    prints and returns name -> [ms, ms]."""
+    ms = {name: [] for name, _ in runs}
+    for name, fn in [*runs, *runs[::-1]]:
+        ms[name].append(round(time_ms(fn, reps), 4))
+    say("time", kernel=label, **fields, ms=json.dumps(ms))
+    return ms
+
+
+def time_k3(g610: CodeGraphs, g5210: CodeGraphs, s610, s5210, llr: float,
+            limit: int) -> None:
+    """Phase 7's K3 readings beside its fixed-work time: the placements at
+    P = 521 (on chip, the plan's, against the state and q in the slab), and
+    early exit on the headline's W=15 batches (a test every sweep) beside a
+    bound from the executed lane-iterations."""
+    graph, syn = g5210.z, s5210[1]
+    runs = [("plan", layered_cuda.plan(graph, limit)), *k3_placements(g5210)]
+    time_shapes(
+        "layered_min_sum shapes",
+        [(name, lambda shape=shape: layered_cuda.layered_run(
+            graph, syn, llr, SHARDED_ITERS, SHARDED_ITERS + 1, shape=shape))
+         for name, shape in runs], 10,
+        graph=f"P={graph.P} Z", batch=SHARDED_BATCH, sweeps=SHARDED_ITERS)
+    for side, graph, syn in (("X", g610.x, s610[0]), ("Z", g610.z, s610[1])):
+        _, iters = layered_cuda.layered_run(graph, syn, llr, MAX_ITERS, 1)
+        lane_iters = int(iters.sum())
+        bound_ms, bound_by = bound(graph, BATCH, MAX_ITERS, "layered",
+                                   graph.num_vars, lane_iters=lane_iters)
+        time_pair(
+            "layered_min_sum early exit",
+            lambda: layered_cuda.layered_run(graph, syn, llr, MAX_ITERS, 1),
+            lambda: layered.layered_min_sum_run(graph, syn, llr, MAX_ITERS, 1),
+            50, 1, graph=f"[[610,61]] {side} W={WEIGHT}",
+            device_kernel="layered_min_sum_kernel",
+            lane_iters=lane_iters, max_lane_iters=int(iters.max()),
+            mean_lane_iters=f"{lane_iters / BATCH:.3f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+
+
+def time_k5_early_exit(gross: CodeGraphs, device, gen: torch.Generator,
+                       llr: float) -> None:
+    """Phase 11's K5 readings under early exit, beside bounds from the
+    executed lane-iterations: the gross min-sum cell's decode (depolarizing
+    p = 0.01, a test every 10) on X and Z, and a damped decode at the gross
+    relay cell's p = 0.03 with random gammas."""
+    s01 = syndromes(gross, 0, 15, device, p_err=GROSS_P)
+    s03 = syndromes(gross, 0, 16, device, p_err=GROSS_RELAY_P)
+    cases = [("X", gross.x, s01[0], GROSS_P, None),
+             ("Z", gross.z, s01[1], GROSS_P, None),
+             ("X", gross.x, s03[0], GROSS_RELAY_P, random_damping(gross.x, gen))]
+    for side, graph, syn, p_err, damping in cases:
+        llr_p = min_sum.prior_llr(np.float32(BPConfig().prior_factor)
+                                  * np.float32(p_err))
+        _, iters = min_sum_cuda.min_sum_run(graph, syn, llr_p, MAX_ITERS, 10,
+                                            damping=damping)
+        lane_iters = int(iters.sum())
+        damped = damping is not None
+        bound_ms, bound_by = bound(
+            graph, BATCH, MAX_ITERS, "min-sum-damped" if damped else "min-sum",
+            lane_iters=lane_iters)
+        time_pair(
+            "lifted_min_sum early exit",
+            lambda: min_sum_cuda.min_sum_run(graph, syn, llr_p, MAX_ITERS, 10,
+                                             damping=damping),
+            lambda: min_sum.min_sum_run(graph, syn, llr_p, MAX_ITERS, 10,
+                                        damping=damping),
+            50, 1, graph=f"{GROSS} {side} p={p_err}", damped=damped,
+            device_kernel="lifted_min_sum_kernel",
+            lane_iters=lane_iters, max_lane_iters=int(iters.max()),
+            mean_lane_iters=f"{lane_iters / BATCH:.3f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
 
 
 def two_proportion_z(k1: int, n1: int, k2: int, n2: int) -> float:
@@ -528,9 +655,8 @@ def compare_bp(graph, syndrome, prior: np.float32, cfg: BPConfig):
 
 def compare_min_sum(graph, syndrome, llr: float, cfg: BPConfig, damping=None):
     """K2 (or K4, by the graph's P; K5 on a lifted graph) vs plain min-sum
-    on one graph.  K2 and K4 count each lane's own iterations: every lane's
-    count must equal the plain count of that lane alone; K5 counts per
-    tile, so its maximum must equal the plain loop's."""
+    on one graph.  All three count each lane's own iterations: every lane's
+    count must equal the plain count of that lane alone."""
     v_k, it_k = min_sum_cuda.min_sum_run(graph, syndrome, llr, cfg.max_iters,
                                          cfg.check_every, cfg.conv_low,
                                          cfg.min_sum_alpha, damping=damping)
@@ -541,30 +667,28 @@ def compare_min_sum(graph, syndrome, llr: float, cfg: BPConfig, damping=None):
     mism, err, nans = bit_mismatches(v_k, v_p)
     mism += flag_mismatches(decide(graph, v_k, syndrome, cfg),
                             decide(graph, v_p, syndrome, cfg))
-    if isinstance(graph, CirculantGraph):
-        mism += int((it_k != lanes_p).sum())
-    else:
-        mism += int(int(it_k.max()) != int(lanes_p.max()))
+    mism += int((it_k != lanes_p).sum())
     return mism, err, int(lanes_p.max()), nans
 
 
-def compare_layered(graph, syndrome, llr: float, cfg: BPConfig):
-    """K3 vs plain layered min-sum on one graph."""
+def compare_layered(graph, syndrome, llr: float, cfg: BPConfig, shape=None):
+    """K3 (with the launch shape ``shape``, by default its plan's) vs plain
+    layered min-sum on one graph.  K3 counts each lane's own sweeps: every
+    lane's count must equal the plain count of that lane alone."""
     q_k, it_k = layered_cuda.layered_run(graph, syndrome, llr, cfg.max_iters,
                                          cfg.layered_check_every,
-                                         cfg.min_sum_alpha)
-    q_p, n_p = layered.layered_min_sum_run(graph, syndrome, llr,
-                                           cfg.max_iters,
-                                           cfg.layered_check_every,
-                                           cfg.min_sum_alpha)
+                                         cfg.min_sum_alpha, shape=shape)
+    q_p, lanes_p = layered.layered_min_sum_run_lanes(
+        graph, syndrome, llr, cfg.max_iters, cfg.layered_check_every,
+        cfg.min_sum_alpha)
     torch.cuda.synchronize()
     mism, err, nans = bit_mismatches(q_k, q_p)
     d_k, d_p = (q_k <= 0).to(torch.int8), (q_p <= 0).to(torch.int8)
     mism += int((d_k != d_p).sum())
     mism += int((syndrome_fail(graph, d_k, syndrome)
                  != syndrome_fail(graph, d_p, syndrome)).sum())
-    mism += int(int(it_k.max()) != int(n_p))
-    return mism, err, int(n_p), nans
+    mism += int((it_k != lanes_p).sum())
+    return mism, err, int(lanes_p.max()), nans
 
 
 def run_checks(kernel: str, cases, compare) -> float:
@@ -594,14 +718,42 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """ms per launch of the CUDA kernel whose name holds ``kernel`` over
+    ``reps`` calls of ``fn()`` (one launch each), from torch.profiler's
+    device time: no host work between the launches is counted.  The mean
+    is over the launches the profiler recorded, which may miss one."""
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    launches = sum(e.count for e in mine)
+    check(0 < launches <= reps,
+          f"the profiler saw {launches} launches of {kernel} in {reps} calls")
+    return 1e-3 * sum(e.self_device_time_total for e in mine) / launches
+
+
 def time_pair(label: str, kernel, plain, kernel_reps: int, plain_reps: int,
-              batch: int = BATCH, **fields) -> tuple[float, float]:
+              batch: int = BATCH, device_kernel: str | None = None,
+              **fields) -> tuple[float, float]:
     """Kernel vs plain in turns (plain, kernel, kernel, plain); returns the
-    mean ms of each."""
+    mean ms of each (CUDA events).  ``device_kernel``: the kernel's name,
+    whose profiler device time (:func:`device_ms`, twice) is printed
+    beside them."""
     plain_ms = [time_ms(plain, plain_reps)]
     kernel_ms = [time_ms(kernel, kernel_reps), time_ms(kernel, kernel_reps)]
     plain_ms.append(time_ms(plain, plain_reps))
     k_ms, p_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
+    if device_kernel is not None:
+        fields["kernel_device_ms"] = [
+            round(device_ms(kernel, kernel_reps, device_kernel), 4)
+            for _ in range(2)]
     say("time", kernel=label, batch=batch, **fields,
         kernel_ms=[round(t, 4) for t in kernel_ms],
         plain_ms=[round(t, 3) for t in plain_ms],
@@ -1073,7 +1225,7 @@ def check_k8(device, g610: CodeGraphs, g5210: CodeGraphs, llr: float) -> float:
     with every shape of K8_SHAPES on the [[5210,521]] G=2 shards; returns
     the largest finite |kernel - plain| (0 when bit for bit)."""
     alpha = BPConfig().min_sum_alpha
-    limit = min_sum_cuda.smem_optin(device.index)
+    limit = placement.smem_optin(device.index)
     worst = 0.0
     for code, side, graph, G in (("[[5210,521]]", "X", g5210.x, 2),
                                  ("[[5210,521]]", "X", g5210.x, 5),
@@ -1124,7 +1276,7 @@ def time_k8(device, g5210: CodeGraphs, llr: float) -> dict:
     bound ms, bound_by)."""
     alpha = BPConfig().min_sum_alpha
     router = ShardRouter(g5210.x, SHARDED_GRAPH, 0)
-    limit = min_sum_cuda.smem_optin(device.index)
+    limit = placement.smem_optin(device.index)
     out = {}
     for batch in K8_BATCHES:
         args = k8_inputs(router, batch, device, 190, False)
@@ -1140,14 +1292,13 @@ def time_k8(device, g5210: CodeGraphs, llr: float) -> dict:
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
         out[batch] = (k_ms, p_ms, bound_ms, bound_by)
         shapes = [sharded_step_cuda.plan(router, limit, *s) for s in K8_SHAPES]
-        ms = {shape_label(s): [] for s in shapes}
-        for shape in shapes + shapes[::-1]:
-            ms[shape_label(shape)].append(round(time_ms(
-                lambda: sharded_step_cuda.sharded_min_sum_step(
-                    router, llr, 0, *args, alpha, shape), 200), 4))
-        say("time", kernel="sharded_min_sum_step shapes", batch=batch,
-            graph="[[5210,521]] X shard 0 of 2", ms=json.dumps(ms),
-            bound_ms=f"{bound_ms:.4f}")
+        time_shapes(
+            "sharded_min_sum_step shapes",
+            [(shape_label(shape), lambda shape=shape:
+              sharded_step_cuda.sharded_min_sum_step(router, llr, 0, *args,
+                                                     alpha, shape))
+             for shape in shapes], 200, batch=batch,
+            graph="[[5210,521]] X shard 0 of 2", bound_ms=f"{bound_ms:.4f}")
     return out
 
 
@@ -1408,9 +1559,8 @@ def main() -> int:
         libraries=len(LIBRARIES))
     for (name, sources), (_, log) in zip(LIBRARIES, logs):
         say("build", library=name, source=sources[0], cached=not log)
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip(), flush=True)
+        for kernel, regs, spill in ptxas_report(log):
+            print(f"  ptxas: {kernel} {regs} registers, {spill}", flush=True)
 
     # 3. K1 vs plain on the card ----------------------------------------------
     phase("3 K1 vs plain")
@@ -1445,7 +1595,7 @@ def main() -> int:
                sp30),
               (f"P={PROBE_P}", "X", "fixed", probe.x, sp_bp[0], prior, fixed10),
               (f"P={PROBE_P}", "Z", "fixed", probe.z, sp_bp[1], prior, fixed10)]
-    limit = min_sum_cuda.smem_optin(device.index)
+    limit = placement.smem_optin(device.index)
     placements = {f"{code} {side}": bp_cuda.plan(graph, limit)
                   for code, side, _, graph, *_ in cases}
     say("plan", kernel="bp_sum_product", smem_optin=limit, placements=json.dumps(
@@ -1476,6 +1626,7 @@ def main() -> int:
             lambda: bp_cuda.bp_run(graph, syn, prior, MAX_ITERS, 10),
             lambda: sum_product.bp_run(graph, syn, prior_t, MAX_ITERS, 10),
             50, 1, graph=f"[[610,61]] {side} W={WEIGHT}",
+            device_kernel="bp_sum_product_kernel",
             lane_iters=lane_iters, max_lane_iters=int(iters.max()),
             mean_lane_iters=f"{lane_iters / BATCH:.3f}",
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
@@ -1549,11 +1700,37 @@ def main() -> int:
                   ("[[610,61]]", "Z", mode, g610.z, s610[1], llr, c)]
     cases += [("[[42]]", "X", "early_exit", g42.x, s42[0], llr, ly42),
               ("[[42]]", "Z", "early_exit", g42.z, s42[1], llr, ly42)]
+    # the P=521 code that phase 20's data-only mesh decodes through K3 (30
+    # sweeps, a test every sweep, batch 1024), and the P=1051 probe code at
+    # 10 fixed sweeps (q and the state of a lane on chip: 97 / 110 KB)
+    ly30 = BPConfig(max_iters=SHARDED_ITERS, algorithm="layered-min-sum")
+    ly_fixed10 = BPConfig(max_iters=10, layered_check_every=11,
+                          algorithm="layered-min-sum")
+    sp = syndromes(probe, probe_weight, 9, device)
+    cases += [("[[5210,521]]", "X", "early_exit", g5210.x, s5210_bp[0], llr,
+               ly30),
+              ("[[5210,521]]", "Z", "early_exit", g5210.z, s5210_bp[1], llr,
+               ly30),
+              (f"P={PROBE_P}", "X", "fixed", probe.x, sp[0][:, :PROBE_BP_BATCH]
+               .contiguous(), llr, ly_fixed10),
+              (f"P={PROBE_P}", "Z", "fixed", probe.z, sp[1][:, :PROBE_BP_BATCH]
+               .contiguous(), llr, ly_fixed10)]
+    placements = {f"{code} {side}": layered_cuda.plan(graph, limit)
+                  for code, side, _, graph, *_ in cases}
+    # every other placement: q and the state in the lane's slab (and the
+    # state alone) on P=521 Z, as phase 7 times them
+    for name, shape in k3_placements(g5210):
+        cases.append((name, "Z", "shape", g5210.z, s5210_bp[1], llr, ly30,
+                      shape))
+        placements[name] = shape
+    say("plan", kernel="layered_min_sum", smem_optin=limit,
+        placements=json.dumps({k: [p.threads, p.q_shared,
+                                   p.state_shared, p.smem_bytes, p.slab_floats]
+                               for k, p in placements.items()}))
     worst["layered_min_sum"] = run_checks("layered_min_sum", cases,
                                           compare_layered)
 
     check(probe.x.P >= min_sum_cuda.WIDE_MIN_P, "probe code below WIDE_MIN_P")
-    sp = syndromes(probe, probe_weight, 9, device)
     wide_fixed = BPConfig(max_iters=20, check_every=21, algorithm="min-sum")
     cases = []
     for mode, c in (("fixed", wide_fixed), ("early_exit", ms_early)):
@@ -1587,6 +1764,7 @@ def main() -> int:
         lambda: layered.layered_min_sum_run(g610.x, s610[0], llr, MAX_ITERS,
                                             MAX_ITERS + 1),
         20, 2, graph="[[610,61]] X", sweeps=MAX_ITERS)
+    time_k3(g610, g5210, s610, s5210_bp, llr, limit)
     times["min_sum_wide"] = time_pair(
         "min_sum_wide",
         lambda: min_sum_cuda.min_sum_run_wide(probe.x, sp[0], llr, 20, 21),
@@ -1674,6 +1852,27 @@ def main() -> int:
     lifted_cases["lifted_min_sum"].append(
         (GROSS, "X", "damped_early_exit", gross.x, s_gross[0], llr, ms_early,
          damping_gross))
+    # the lifted slab placements: the probe codes' Z graphs as lifted graphs
+    # (P=1051: K5's check state in the lane's slab, the damping too; P=2081:
+    # V, 416 KB, in the slab), random syndromes
+    for P in (PROBE_P, 2081):
+        z = (probe if P == PROBE_P else CodeGraphs.build(construct_code(
+            4, 5, 10, P, *find_code_params(4, 5, 10, P)[0]))).z
+        big = LiftedGraph.from_circulant(z.table, P)
+        syn = (torch.rand((big.num_checks, LIFTED_SLAB_BATCH), generator=gen,
+                          device=device) < 0.02).to(torch.int32)
+        for damped in (False, True):
+            damping = (random_damping(big, gen, LIFTED_SLAB_BATCH)
+                       if damped else None)
+            pl = placement.plan(big, damped, limit)
+            check(pl.slab_floats > 0, f"lifted P={P} does not reach the slab")
+            say("plan", kernel="lifted_min_sum", graph=f"lifted P={P} Z",
+                damped=damped, placement=json.dumps(
+                    [pl.threads, pl.v_shared, pl.state_shared,
+                     pl.damping_shared, pl.smem_bytes, pl.slab_floats]))
+            lifted_cases["lifted_min_sum"].append(
+                (f"lifted P={P}", "Z", "damped_early_exit" if damped
+                 else "early_exit", big, syn, llr, ms_early, damping))
     before = read_counts()
     worst["lifted_min_sum"] = run_checks(
         "lifted_min_sum", lifted_cases["lifted_min_sum"], compare_min_sum)
@@ -1696,6 +1895,7 @@ def main() -> int:
         lambda: min_sum.min_sum_run(gross.x, s_gross[0], llr, MAX_ITERS,
                                     MAX_ITERS + 1),
         50, 3, graph=f"{GROSS} X", iters=MAX_ITERS)
+    time_k5_early_exit(gross, device, gen, llr)
     times["lifted_bp"] = time_pair(
         "lifted_bp",
         lambda: bp_cuda.bp_run(gross.x, s_gross[0], prior, MAX_ITERS,

@@ -5,8 +5,11 @@
 
 Each cell is one ``run_monte_carlo`` workload of ``chip_smoke.py`` (the
 ``osd`` cell: ``run_monte_carlo_osd``), defined in ``workloads.py``, except
-two kernels alone: ``k1``, ``K1_DECODES`` fixed-work sum-product decodes (K1,
-100 iterations of the [[610,61]] X graph at batch 2048), and ``k8``, a loop
+the kernels alone: ``k1``, ``k2`` and ``k3``, ``KERNEL_DECODES`` fixed-work
+decodes (K1 sum-product, K2 min-sum, K3 layered; 100 iterations or sweeps of
+the [[610,61]] X graph at batch 2048), ``k4`` 20 iterations of the P=1051
+probe's X graph through K4, ``k5`` 100 through K5 on the gross code's X
+graph, and ``k8``, a loop
 of ``K8_STEPS`` graph-sharded min-sum steps (K8) of shard 0 of 2 of the
 [[5210,521]] X graph at batch 1024 (the graph-sharded cell's lanes per rank;
 ``k8-256`` and ``k8-2048`` at those batches) in one process, with no mesh,
@@ -63,7 +66,7 @@ from workloads import (
 )
 
 RUNS = 3  # unprofiled timed runs per cell
-K1_DECODES = 20  # fixed-work K1 decodes per run of the k1 cell
+KERNEL_DECODES = 20  # fixed-work decodes per run of a kernel-alone cell
 
 # cell -> (code, error model, weight, p, config, chunks, relay retries,
 #          kernel names as the profiler shows them, the decode kernel first
@@ -90,6 +93,10 @@ CELLS = {
     "osd": ("610", "weight", OSD_WEIGHT, OSD_P, MIN_SUM, OSD_CHUNKS, 0,
             ("min_sum_kernel", "osd0_kernel"), OSD_BATCH, OSD_LAM),
     "k1": ("610",),
+    "k2": ("610",),
+    "k3": ("610",),
+    "k4": ("1051",),
+    "k5": ("gross",),
     "k8": ("5210", 1024),
     "k8-256": ("5210", 256),
     "k8-2048": ("5210", 2048),
@@ -97,11 +104,17 @@ CELLS = {
 
 
 def build_graphs(code: str) -> CodeGraphs:
-    """The [[610,61]] code or the gross code [[144,12,12]].  The gross code
-    is imported only when a gross cell runs, so the circulant cells also run
-    against a tree of the port that predates the lifted codes."""
+    """The [[610,61]] code, the P=1051 probe code of chip_smoke.py or the
+    gross code [[144,12,12]].  The gross code is imported only when a gross
+    cell runs, so the circulant cells also run against a tree of the port
+    that predates the lifted codes."""
     if code == "610":
         return CodeGraphs.build(construct_code(*HEADLINE_CODE))
+    if code == "1051":
+        from qec_ldpc_tpu_torch.codes import find_code_params
+
+        return CodeGraphs.build(construct_code(
+            4, 5, 10, 1051, *find_code_params(4, 5, 10, 1051)[0]))
     from qec_ldpc_tpu_torch.codes import known_bicycle_code
 
     return known_bicycle_code(GROSS).build_graphs()
@@ -137,40 +150,62 @@ def device_profile(run, kernels: tuple):
     return walls, busy_us, sum(e.count for e in events), shares, result
 
 
-def profile_k1(graphs: CodeGraphs, device) -> dict:
-    """The ``k1`` cell: K1_DECODES fixed-work decodes (MAX_ITERS iterations,
-    no convergence test after the first) of the [[610,61]] X graph at BATCH,
-    the kernel alone."""
-    from qec_ldpc_tpu_torch.kernels import bp_cuda
+def profile_kernel(name: str, graphs: CodeGraphs, device) -> dict:
+    """The kernel-alone cells: KERNEL_DECODES fixed-work decodes (MAX_ITERS
+    iterations or sweeps, no convergence test after the first) at BATCH of
+    the [[610,61]] X graph through K1 (``k1``), K2 (``k2``) or K3 (``k3``)
+    on weight-15 syndromes, of the P=1051 probe's X graph through K4
+    (``k4``, 20 iterations, weight-258 syndromes: chip_smoke.py's phase 7
+    shape), or of the gross X graph through K5 (``k5``) on depolarizing
+    p = 0.03 syndromes (chip_smoke.py's phase 11 input).  The wrappers are
+    imported here: earlier trees of the port lack some."""
+    from qec_ldpc_tpu_torch.decoder.min_sum import prior_llr
+    from qec_ldpc_tpu_torch.kernels import bp_cuda, layered_cuda, min_sum_cuda
     from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
-    from qec_ldpc_tpu_torch.sampling.errors import sample_weight_w_errors
+    from qec_ldpc_tpu_torch.sampling import errors
 
-    xe, _ = sample_weight_w_errors(chunk_generator(7, 0, device),
-                                   graphs.code.n, WEIGHT, BATCH)
+    gen = chunk_generator(7, 0, device)
+    if name == "k5":
+        xe, _ = errors.sample_depolarizing_errors(gen, graphs.code.n, 0.03, BATCH)
+    else:
+        xe, _ = errors.sample_weight_w_errors(
+            gen, graphs.code.n, round(WEIGHT * graphs.code.n / 610), BATCH)
     syn = graphs.x.syndrome(xe.to(torch.int32))
     prior = float(torch.tensor(2.0 / 3.0, dtype=torch.float32)
                   * torch.tensor(P_ERR, dtype=torch.float32))
+    llr = prior_llr(prior)
+    kernel, decode = {
+        "k1": ("bp_sum_product_kernel", lambda: bp_cuda.bp_run(
+            graphs.x, syn, prior, MAX_ITERS, MAX_ITERS + 1)),
+        "k2": ("min_sum_kernel", lambda: min_sum_cuda.min_sum_run(
+            graphs.x, syn, llr, MAX_ITERS, MAX_ITERS + 1)),
+        "k3": ("layered_min_sum_kernel", lambda: layered_cuda.layered_run(
+            graphs.x, syn, llr, MAX_ITERS, MAX_ITERS + 1)),
+        "k4": ("min_sum_kernel", lambda: min_sum_cuda.min_sum_run(
+            graphs.x, syn, llr, 20, 21)),
+        "k5": ("lifted_min_sum_kernel", lambda: min_sum_cuda.min_sum_run(
+            graphs.x, syn, llr, MAX_ITERS, MAX_ITERS + 1)),
+    }[name]
 
     def run():
-        for _ in range(K1_DECODES):
-            bp_cuda.bp_run(graphs.x, syn, prior, MAX_ITERS, MAX_ITERS + 1)
+        for _ in range(KERNEL_DECODES):
+            decode()
         torch.cuda.synchronize()
 
-    walls, busy_us, ops, shares, _ = device_profile(
-        run, ("bp_sum_product_kernel",))
-    k1 = shares["bp_sum_product_kernel"]
+    walls, busy_us, ops, shares, _ = device_profile(run, (kernel,))
+    k = shares[kernel]
     return {
-        "cell": "k1",
-        "decodes": K1_DECODES,
+        "cell": name,
+        "decodes": KERNEL_DECODES,
         "batch": BATCH,
-        "iterations": MAX_ITERS,
-        "wall_ms_per_decode": 1e3 * min(walls) / K1_DECODES,
-        "device_busy_ms_per_decode": 1e-3 * busy_us / K1_DECODES,
-        "decode_kernel": "bp_sum_product_kernel",
-        "decode_share_of_device": k1["share_of_device"],
-        "decode_ms_per_launch": k1["ms_per_launch"],
-        "decode_launches": k1["launches"],
-        "device_ops_per_decode": ops / K1_DECODES,
+        "iterations": 20 if name == "k4" else MAX_ITERS,
+        "wall_ms_per_decode": 1e3 * min(walls) / KERNEL_DECODES,
+        "device_busy_ms_per_decode": 1e-3 * busy_us / KERNEL_DECODES,
+        "decode_kernel": kernel,
+        "decode_share_of_device": k["share_of_device"],
+        "decode_ms_per_launch": k["ms_per_launch"],
+        "decode_launches": k["launches"],
+        "device_ops_per_decode": ops / KERNEL_DECODES,
     }
 
 
@@ -282,10 +317,12 @@ def main() -> int:
         code = CELLS[name][0]
         if code not in graphs:
             graphs[code] = build_graphs(code)
-            logical[code] = make_rank_basis_test(graphs[code].code, device)
-        if name == "k1":
-            print(json.dumps(profile_k1(graphs[code], device)), flush=True)
+        if name in ("k1", "k2", "k3", "k4", "k5"):
+            print(json.dumps(profile_kernel(name, graphs[code], device)),
+                  flush=True)
             continue
+        if code not in logical:
+            logical[code] = make_rank_basis_test(graphs[code].code, device)
         print(json.dumps(profile_cell(name, graphs[code], logical[code], device)),
               flush=True)
     smi = subprocess.run(

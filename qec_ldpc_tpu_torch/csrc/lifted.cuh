@@ -1,7 +1,9 @@
 // The lifted-graph description read by both lifted kernels
 // (csrc/lifted_min_sum.cu and csrc/lifted_bp.cu): their compile-time limits,
-// the by-value graph, its validation on the host and the variable-side
-// routing.  kernels/launch.py::lifted_description builds the host tables.
+// the by-value graph and its validation on the host; and, for the
+// sum-product kernel, its 16-lane tile and the variable-side routing (the
+// min-sum kernel runs one lane per CTA and resolves the routing on the
+// host).  kernels/launch.py::lifted_description builds the host tables.
 //
 // Messages are (E*P, batch) float32 with the batch trailing, edge blocks in
 // check-major order (check row c owns blocks c*Dc .. c*Dc+Dc-1), each
@@ -20,7 +22,7 @@ namespace {
 constexpr int kMaxEdgeBlocks = 64;
 constexpr int kMaxDc = 16;     // check degree (edge blocks per check row)
 constexpr int kMaxDv = 8;      // variable degree (edge blocks per var column)
-constexpr int kTile = 16;      // batch lanes per block
+constexpr int kTile = 16;      // batch lanes per block (lifted_bp.cu)
 constexpr int kThreads = 512;  // kThreads / kTile row groups per block
 
 struct Lifted {

@@ -46,7 +46,9 @@
 //     into the sign gives s * ((alpha * sgn) * m) bit for bit.  The variable
 //     phase rebuilds each E from the state ({min1, min2} in one 8-byte load
 //     beside the meta word) and the sign of its own edge's V_old, which it
-//     reads before overwriting it.  Writing E over V in the check phase
+//     reads before overwriting it.  The state's fold and rebuild are
+//     csrc/check_state.cuh, shared with K5 and K3, so that the NaN, +-0.0,
+//     +-inf and tie rules are written once.  Writing E over V in the check phase
 //     instead (the state in registers) was measured slower: holding a
 //     check's L values raised the registers from 38-39 to 48-51 at B = 4, 5
 //     and cost a CTA per SM.
@@ -78,6 +80,8 @@
 // lane's column is strided, so the syndrome and the damping are staged once
 // at the start and V written once at the end.
 
+#include "check_state.cuh"
+
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -87,7 +91,6 @@ namespace {
 constexpr int kMaxB = 8;        // variable degree (block rows)
 constexpr int kMaxL = 16;       // check degree (block columns)
 constexpr int kMaxThreads = 1024;
-constexpr unsigned kNoArg = 31; // argmin field when every edge is NaN
 
 struct Graph {
   int B, L, P;
@@ -179,27 +182,13 @@ min_sum_kernel(const Graph g, const Placement pl,
     // ---- check phase: thread walks checks c = (b, r) -> compressed state
     for (int c = tid, b = i0, r = j0; c < checks; c += T) {
       const float* row = V + b * LP + r;  // edge (b, 0, r); (b, l, r) at l*P
-      float m1 = INFINITY, m2 = INFINITY;
-      unsigned arg = kNoArg, nans = 0, neg = SYN[c];
+      CheckState st = state_begin(SYN[c]);
 #pragma unroll
       for (int l = 0; l < kMaxL; ++l) {
-        if (l < L) {
-          const float t = row[l * P];
-          const float a = fabsf(t);
-          neg ^= (t < 0.0f);
-          if (isnan(t)) {
-            ++nans;
-          } else if (a < m1) {
-            m2 = m1;
-            m1 = a;
-            arg = l;
-          } else if (a < m2) {
-            m2 = a;
-          }
-        }
+        if (l < L) state_add(st, row[l * P], l);
       }
-      M[c] = make_float2(m1, m2);
-      META[c] = arg | (nans << 8) | (neg << 16);
+      M[c] = make_float2(st.m1, st.m2);
+      META[c] = flood_meta(st);
       b += Ti;
       r += Tj;
       if (r >= P) {
@@ -222,16 +211,9 @@ min_sum_kernel(const Graph g, const Placement pl,
         if (r < 0) r += P;
         edge[b] = b * LP + lP + r;
         const int c = b * P + r;
+        // edge l of check c, rebuilt from the state and its own V_old
         const float old = V[edge[b]];
-        const float2 m = M[c];
-        const unsigned meta = META[c];
-        // leave-one-out minimum and sign of edge l of check c: NaN when
-        // another edge is NaN (the reference's minima propagate NaN)
-        const bool nan_other = ((meta >> 8) & 31u) > (isnan(old) ? 1u : 0u);
-        const float loo_min =
-            nan_other ? NAN : ((meta & 31u) == (unsigned)l ? m.y : m.x);
-        const bool neg = ((meta >> 16) & 1u) ^ (old < 0.0f);
-        t[b] = (neg ? -alpha : alpha) * loo_min;
+        t[b] = flood_message(M[c], META[c], l, old, alpha);
       }
       float pre[kB];
       pre[0] = 0.0f;

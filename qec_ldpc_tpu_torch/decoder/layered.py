@@ -86,6 +86,33 @@ def layered_min_sum_run(
     ``check_every`` defaults to 1: the parity test is cheap and layered
     decoding converges in a handful of sweeps.  The host reads the done mask
     only after a convergence test."""
+    q, n, _ = _layered_loop(graph, syndrome, prior_llr, max_iters,
+                            check_every, alpha)
+    return q, n
+
+
+def layered_min_sum_run_lanes(
+    graph: CirculantGraph,
+    syndrome: torch.Tensor,
+    prior_llr: float,
+    max_iters: int,
+    check_every: int = 1,
+    alpha: float = 0.75,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`layered_min_sum_run` with each lane's own executed sweep count:
+    ``(q_final, lane_iters (batch,) int32)``, the sweeps in which the lane
+    was not yet done.  Lanes decode independently and a done lane is
+    frozen, so a lane's count is what :func:`layered_min_sum_run` gives for
+    the lane run alone, and their maximum is the batch run's count.  The
+    reference the layered kernel's per-lane ``iters`` is held to."""
+    q, _, lane_iters = _layered_loop(graph, syndrome, prior_llr, max_iters,
+                                     check_every, alpha)
+    return q, lane_iters
+
+
+def _layered_loop(graph, syndrome, prior_llr, max_iters, check_every, alpha):
+    """The loop of :func:`layered_min_sum_run`: ``(q_final, sweeps
+    executed, per-lane executed sweeps)``."""
     batch = syndrome.shape[-1]
     device = syndrome.device
     syn_sign = 1.0 - 2.0 * syndrome.to(torch.float32)        # (num_checks, batch)
@@ -94,14 +121,16 @@ def layered_min_sum_run(
     r = torch.zeros((graph.num_edges, batch), dtype=torch.float32,
                     device=device)
     done = torch.zeros(batch, dtype=torch.bool, device=device)
+    lane_iters = torch.zeros(batch, dtype=torch.int32, device=device)
     all_done = False
     n = 0
     while n < max_iters and not all_done:
         q_new, r_new = layered_sweep(graph, q, r, syn_sign, alpha)
         q = torch.where(done[None, :], q, q_new)
         r = torch.where(done[None, :], r, r_new)
+        lane_iters += ~done
         if n % check_every == check_every - 1:
             done = done | syndrome_satisfied(graph, q, syn_sign)
             all_done = bool(done.all())
         n += 1
-    return q, torch.full((), n, dtype=torch.int32, device=device)
+    return q, torch.full((), n, dtype=torch.int32, device=device), lane_iters

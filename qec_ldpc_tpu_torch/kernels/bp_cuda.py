@@ -28,7 +28,7 @@ import torch
 from qec_ldpc_tpu_torch.decoder import sum_product
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
 from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
-from qec_ldpc_tpu_torch.kernels import build, launch, lifted_bp_cuda, min_sum_cuda
+from qec_ldpc_tpu_torch.kernels import build, launch, lifted_bp_cuda, placement
 
 #: the kernel's compile-time degree limits (kMaxB / kMaxL in the source)
 MAX_VAR_DEGREE = 8
@@ -130,7 +130,7 @@ def bp_run(
         return v, n.expand(batch).clone()
     launch.check_cuda_args(graph, syndrome, MAX_VAR_DEGREE, MAX_CHECK_DEGREE)
     lib = _library()
-    pl = plan(graph, min_sum_cuda.smem_optin(syndrome.device.index))
+    pl = plan(graph, placement.smem_optin(syndrome.device.index))
     v = torch.empty((graph.num_edges, batch), dtype=torch.float32,
                     device=syndrome.device)
     scratch = (torch.empty((batch * pl.slab_floats,), dtype=torch.float32,

@@ -8,9 +8,9 @@ The port of two TPU kernels that compute one function:
     — the route :func:`min_sum_run_wide`, which :func:`min_sum_run` hands
     ``P >= WIDE_MIN_P`` to, as the JAX kernel does.  On the TPU it is a
     transposed layout for VMEM's sake; here both routes launch the same
-    kernel, one lane per CTA, and :func:`plan` decides per graph and device
-    which of a lane's arrays fit in shared memory and which go to a per-lane
-    slab of global scratch.
+    kernel, one lane per CTA, and ``placement.plan`` decides per graph and
+    device which of a lane's arrays fit in shared memory and which go to a
+    per-lane slab of global scratch.
 
 Each wrapper checks its arguments, allocates the outputs and the scratch and
 launches the kernel on the current CUDA stream for a CUDA tensor; for a CPU
@@ -25,7 +25,6 @@ count each route's kernel launches (never the plain path).
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import torch
@@ -33,7 +32,8 @@ import torch
 from qec_ldpc_tpu_torch.decoder import min_sum
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
 from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
-from qec_ldpc_tpu_torch.kernels import build, launch, lifted_min_sum_cuda
+from qec_ldpc_tpu_torch.kernels import (build, launch, lifted_min_sum_cuda,
+                                       placement)
 
 #: the kernel's compile-time degree limits (kMaxB / kMaxL in the source)
 MAX_VAR_DEGREE = 8
@@ -49,48 +49,6 @@ SOURCES = ("min_sum.cu",)
 launches = 0
 #: kernel launches by :func:`min_sum_run_wide` (P >= WIDE_MIN_P)
 wide_launches = 0
-
-
-def _align16(n: int) -> int:
-    return (n + 15) // 16 * 16
-
-
-@dataclasses.dataclass(frozen=True)
-class Plan:
-    """Where one lane's arrays live, and the CTA size: what the launcher is
-    given (the kernel lays the arrays out in :func:`plan`'s order)."""
-
-    threads: int
-    v_shared: bool
-    state_shared: bool
-    damping_shared: bool
-    smem_bytes: int      # dynamic shared memory per CTA
-    slab_floats: int     # float32 global scratch per lane
-
-
-def plan(graph: CirculantGraph, damped: bool, smem_limit: int) -> Plan:
-    """The kernel's placement for ``graph`` on a device whose CTA may take
-    ``smem_limit`` bytes of shared memory (its opt-in limit, 227 KB on an
-    H100): the syndrome bits always in shared memory, then, while they fit,
-    V (4 bytes per edge), the compressed check state (12 bytes per check)
-    and the damping (4 bytes per edge); the rest in the lane's global slab.
-    Each array starts 16-byte aligned, in shared memory and in the slab.
-    Threads: one per two variables, a multiple of 32 in [128, 1024], so
-    that an iteration is one or two passes over the lane's checks and
-    variables."""
-    edges, checks = graph.num_edges, graph.num_checks
-    v_bytes = _align16(4 * edges)
-    state_bytes = _align16(8 * checks) + _align16(4 * checks)
-    used, slab_bytes = _align16(checks), 0
-    placed = []
-    for nbytes, wanted in ((v_bytes, True), (state_bytes, True),
-                           (v_bytes, damped)):
-        fits = wanted and used + nbytes <= smem_limit
-        used += nbytes if fits else 0
-        slab_bytes += nbytes if wanted and not fits else 0
-        placed.append(fits)
-    threads = min(1024, max(128, -(-graph.num_vars // 64) * 32))
-    return Plan(threads, *placed, used, slab_bytes // 4)
 
 
 #: the C types of ``qec_min_sum``'s parameters, in order
@@ -111,19 +69,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("qec_min_sum", SOURCES)
     lib.qec_min_sum.argtypes = ARGTYPES
     lib.qec_min_sum.restype = ctypes.c_int
-    lib.qec_min_sum_smem_optin.argtypes = [ctypes.c_int]
-    lib.qec_min_sum_smem_optin.restype = ctypes.c_int
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def smem_optin(index: int) -> int:
-    """The shared memory a CTA may take on CUDA device ``index`` with the
-    opt-in, in bytes (queried once per device); the sum-product and sharded
-    step plans (``bp_cuda``, ``sharded_step_cuda``) read it too."""
-    limit = _library().qec_min_sum_smem_optin(index)
-    launch.raise_on_error("qec_min_sum_smem_optin", -min(limit, 0))
-    return limit
 
 
 def _run(graph: CirculantGraph, syndrome: torch.Tensor, prior_llr: float,
@@ -141,7 +87,8 @@ def _run(graph: CirculantGraph, syndrome: torch.Tensor, prior_llr: float,
     if damping is not None and not damping.is_contiguous():
         raise ValueError("damping must be contiguous")
     lib = _library()
-    pl = plan(graph, damping is not None, smem_optin(syndrome.device.index))
+    pl = placement.plan(graph, damping is not None,
+                        placement.smem_optin(syndrome.device.index))
     v = torch.empty((graph.num_edges, batch), dtype=torch.float32,
                     device=syndrome.device)
     scratch = (torch.empty((batch * pl.slab_floats,), dtype=torch.float32,

@@ -40,7 +40,7 @@ import torch
 
 from qec_ldpc_tpu_torch.decoder.min_sum import _sign, f32
 from qec_ldpc_tpu_torch.decoder.sum_product import exclusive_scans
-from qec_ldpc_tpu_torch.kernels import build, launch, min_sum_cuda
+from qec_ldpc_tpu_torch.kernels import build, launch, placement
 
 SOURCES = ("sharded_min_sum_step.cu",)
 
@@ -259,7 +259,7 @@ def sharded_min_sum_step(router, prior_llr: float, last: bool,
             raise ValueError(f"{name} must be contiguous")
     lib = _library()
     batch = v.shape[1]
-    pl = (plan(router, min_sum_cuda.smem_optin(v.device.index))
+    pl = (plan(router, placement.smem_optin(v.device.index))
           if shape is None else shape)
     v_new = torch.empty_like(v)
     part = torch.empty_like(other)

@@ -17,7 +17,7 @@ from qec_ldpc_tpu_torch import construct_code
 from qec_ldpc_tpu_torch.codes import find_code_params
 from qec_ldpc_tpu_torch.decoder import sum_product
 from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs
-from qec_ldpc_tpu_torch.kernels import bp_cuda, build, min_sum_cuda
+from qec_ldpc_tpu_torch.kernels import bp_cuda, build, placement
 from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
 from qec_ldpc_tpu_torch.sampling.errors import sample_weight_w_errors
 
@@ -142,7 +142,7 @@ def test_slab_route_matches_plain_on_cuda(cuda_device):
     s, t = find_code_params(4, 5, 10, 1051)[0]
     graphs = CodeGraphs.build(construct_code(4, 5, 10, 1051, s, t))
     graph = graphs.z
-    pl = bp_cuda.plan(graph, min_sum_cuda.smem_optin(cuda_device.index))
+    pl = bp_cuda.plan(graph, placement.smem_optin(cuda_device.index))
     assert pl.v_shared and not pl.e_shared and pl.slab_floats > 0
     syn = syndrome(graph, graphs.code.n, 26, 128, cuda_device)
     compare_on_cuda(graph, syn, 10, 11)

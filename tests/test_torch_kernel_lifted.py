@@ -11,6 +11,7 @@ kernels are compared with their plain versions bit for bit by the
 """
 
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ from qec_ldpc_tpu_torch.kernels import (
     lifted_bp_cuda,
     lifted_min_sum_cuda,
     min_sum_cuda,
+    placement,
 )
 from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
 from qec_ldpc_tpu_torch.sampling.errors import sample_depolarizing_errors
@@ -188,14 +190,17 @@ def test_limits_raise_before_launch():
 
 
 def compare_on_cuda(graph, syn, max_iters, check_every, damping=None):
+    """K5 (each lane's ``iters`` the plain count of that lane alone) and,
+    undamped, K6 (a tile's count: its maximum the plain loop's) against
+    their plain versions."""
     before = counts()
     v, iters = min_sum_cuda.min_sum_run(graph, syn, LLR, max_iters,
                                         check_every, damping=damping)
-    v_p, n_p = min_sum.min_sum_run(graph, syn, LLR, max_iters, check_every,
-                                   damping=damping)
+    v_p, lanes_p = min_sum.min_sum_run_lanes(graph, syn, LLR, max_iters,
+                                             check_every, damping=damping)
     torch.cuda.synchronize()
     assert_same(v, v_p)
-    assert int(iters.max()) == int(n_p)
+    assert torch.equal(iters, lanes_p)
     if damping is None:
         b, it_b = bp_cuda.bp_run(graph, syn, PRIOR, max_iters, check_every)
         b_p, nb_p = sum_product.bp_run(graph, syn, torch.tensor(PRIOR, device=syn.device),
@@ -242,9 +247,9 @@ def test_hypergraph_kernels_match_plain_on_cuda(cuda_device, build_code):
 @pytest.mark.cuda
 def test_one_dimensional_group_matches_circulant_kernel(cuda_device):
     """``LiftedGraph.from_circulant`` of [[610,61]] through K5/K6 equals the
-    circulant kernels K2/K1 bit for bit.  K1, K5 and K6 count a 16-lane
-    tile's iterations per lane, K2 each lane's own: K2's counts reach the
-    same maximum and never exceed their tile's."""
+    circulant kernels K2/K1 bit for bit.  K1, K2 and K5 count each lane's
+    own iterations, K6 its 16-lane tile's: K5's counts equal K2's, and K6's
+    are K1's tile maxima."""
     code = codes.construct_code(4, 5, 10, 61, 9, 49)
     cg = CodeGraphs.build(code).x
     lg = LiftedGraph.from_circulant(cg.table, cg.P)
@@ -257,9 +262,42 @@ def test_one_dimensional_group_matches_circulant_kernel(cuda_device):
         torch.cuda.synchronize()
         assert_same(v_l, v_c)
         if run is bp_cuda.bp_run:
-            assert torch.equal(it_l, it_c)
-        else:
-            assert int(it_c.max()) == int(it_l.max())
-            assert bool((it_c <= it_l).all())
             tiles = it_c.reshape(-1, 16).amax(dim=1)
             assert torch.equal(tiles.repeat_interleave(16), it_l)
+        else:
+            assert torch.equal(it_l, it_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1051, 2081])
+@pytest.mark.parametrize("damped", [False, True], ids=["undamped", "damped"])
+def test_large_lift_slab_on_cuda(cuda_device, P, damped):
+    """The probe codes' Z graphs as lifted graphs: at P=1051 K5's check
+    state (and damping) in the lane's slab, at P=2081 its V (416 KB)."""
+    s, t = codes.find_code_params(4, 5, 10, P)[0]
+    z = CodeGraphs.build(codes.construct_code(4, 5, 10, P, s, t)).z
+    graph = LiftedGraph.from_circulant(z.table, P)
+    pl = placement.plan(graph, damped,
+                           placement.smem_optin(cuda_device.index))
+    assert pl.slab_floats > 0 and pl.v_shared == (P == 1051)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(P)
+    syn = (torch.rand((graph.num_checks, 64), generator=g, device=cuda_device)
+           < 0.02).to(torch.int32)
+    damping = gammas(graph, 64, cuda_device) if damped else None
+    before = lifted_min_sum_cuda.launches
+    for max_iters, check_every in ((20, 21), (60, 10)):
+        v, iters = min_sum_cuda.min_sum_run(graph, syn, LLR, max_iters,
+                                            check_every, damping=damping)
+        v_p, lanes_p = min_sum.min_sum_run_lanes(graph, syn, LLR, max_iters,
+                                                 check_every, damping=damping)
+        torch.cuda.synchronize()
+        assert_same(v, v_p)
+        assert torch.equal(iters, lanes_p)
+    assert lifted_min_sum_cuda.launches == before + 2
+
+
+def test_lifted_min_sum_signature_matches_argtypes():
+    src = (build.CSRC_DIR / "lifted_min_sum.cu").read_text()
+    sig = re.search(r'extern "C" int qec_lifted_min_sum\(([^)]*)\)', src).group(1)
+    assert len(sig.split(",")) == len(lifted_min_sum_cuda.ARGTYPES)

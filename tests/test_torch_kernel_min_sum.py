@@ -22,7 +22,7 @@ from qec_ldpc_tpu_torch.codes import find_code_params
 from qec_ldpc_tpu_torch.decoder import min_sum
 from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
-from qec_ldpc_tpu_torch.kernels import build, layered_cuda, min_sum_cuda
+from qec_ldpc_tpu_torch.kernels import build, layered_cuda, min_sum_cuda, placement
 from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
 from qec_ldpc_tpu_torch.sampling.errors import sample_weight_w_errors
 
@@ -145,7 +145,7 @@ def test_plan_keeps_the_main_path_on_chip():
     g610 = CodeGraphs.build(construct_code(4, 5, 10, 61, 9, 49))
     for graph in (g610.x, g610.z):
         for damped in (False, True):
-            pl = min_sum_cuda.plan(graph, damped, H100_SMEM)
+            pl = placement.plan(graph, damped, H100_SMEM)
             assert (pl.v_shared, pl.state_shared, pl.slab_floats) == (True, True, 0)
             assert pl.damping_shared == damped and pl.threads == 320
     probes = {}
@@ -153,18 +153,18 @@ def test_plan_keeps_the_main_path_on_chip():
         s, t = find_code_params(4, 5, 10, P)[0]
         probes[P] = CodeGraphs.build(construct_code(4, 5, 10, P, s, t))
     x, z = probes[1051].x, probes[1051].z
-    assert min_sum_cuda.plan(x, False, H100_SMEM).slab_floats == 0
-    assert min_sum_cuda.plan(x, True, H100_SMEM).slab_floats == x.num_edges
-    pz = min_sum_cuda.plan(z, False, H100_SMEM)
+    assert placement.plan(x, False, H100_SMEM).slab_floats == 0
+    assert placement.plan(x, True, H100_SMEM).slab_floats == x.num_edges
+    pz = placement.plan(z, False, H100_SMEM)
     assert pz.v_shared and not pz.state_shared
     # {min1, min2} and meta, each array 16-byte aligned
     state_floats = aligned(2 * z.num_checks) + aligned(z.num_checks)
     assert pz.slab_floats == state_floats and pz.threads == 1024
-    p4 = min_sum_cuda.plan(probes[4201].z, True, H100_SMEM)
+    p4 = placement.plan(probes[4201].z, True, H100_SMEM)
     assert not p4.v_shared and not p4.damping_shared
     for graph in (x, z, probes[4201].x, probes[4201].z, g610.x):
         for damped in (False, True):
-            pl = min_sum_cuda.plan(graph, damped, H100_SMEM)
+            pl = placement.plan(graph, damped, H100_SMEM)
             assert pl.smem_bytes <= H100_SMEM
             assert pl.threads % 32 == 0 and 128 <= pl.threads <= 1024
 
@@ -179,7 +179,7 @@ def test_plan_follows_the_device_limit(limit):
     state_bytes = 4 * (aligned(2 * graph.num_checks) + aligned(graph.num_checks))
     syn_bytes = 4 * aligned(-(-graph.num_checks // 4))
     for damped in (False, True):
-        pl = min_sum_cuda.plan(graph, damped, limit)
+        pl = placement.plan(graph, damped, limit)
         assert pl.smem_bytes <= limit
         assert pl.v_shared == (syn_bytes + v_bytes <= limit)
         on_chip = syn_bytes + v_bytes * pl.v_shared
@@ -273,7 +273,7 @@ def test_kernel_on_every_device(damped):
         device = torch.device("cuda", index)
         syn = syndrome(graphs.z, graphs.code.n, 220, 256, device)
         damping = gammas(graphs.z, 256, device) if damped else None
-        pl = min_sum_cuda.plan(graphs.z, damped, min_sum_cuda.smem_optin(index))
+        pl = placement.plan(graphs.z, damped, placement.smem_optin(index))
         assert pl.smem_bytes > 48 * 1024
         with torch.cuda.device(device):
             compare_on_cuda(graphs.z, syn, 30, 10, damping)

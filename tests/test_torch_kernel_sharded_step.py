@@ -20,7 +20,7 @@ import torch
 
 from qec_ldpc_tpu_torch import construct_code
 from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs
-from qec_ldpc_tpu_torch.kernels import build, min_sum_cuda, sharded_step_cuda
+from qec_ldpc_tpu_torch.kernels import build, placement, sharded_step_cuda
 from qec_ldpc_tpu_torch.parallel.graph_sharded import ShardRouter
 
 CODES = {"42": (3, 3, 6, 7, 2, 3), "610": (4, 5, 10, 61, 9, 49),
@@ -163,7 +163,7 @@ def test_every_launch_shape_bit_exact(shard, lanes, fold, cuda_device):
     router = ShardRouter(CodeGraphs.build(construct_code(*CODES[code_name])).x,
                          G, g)
     shape = sharded_step_cuda.plan(
-        router, min_sum_cuda.smem_optin(cuda_device.index), lanes, fold)
+        router, placement.smem_optin(cuda_device.index), lanes, fold)
     args = [a.to(cuda_device) for a in inputs(router, 100, 13)]
     for last in (0, 1):
         got = sharded_step_cuda.sharded_min_sum_step(router, LLR, last, *args,
