@@ -79,15 +79,16 @@ exit) if any phase fails:
              iterations, K5 damped with random gammas, the d=32 toric code
              X and Z at 20 fixed iterations (P = 1024, which must not take
              the circulant wide route) and [[756,16,34]] X at 20 fixed
-             iterations; K5 also on the P=1051 and P=2081 probe codes' Z
-             graphs as lifted graphs, damped and undamped (its check state,
-             then its V, in the lane's slab).  K5 counts each lane's own
-             iterations: every lane's count must equal the plain count of
-             that lane alone; K6 counts its tile's (the maximum must agree)
+             iterations; both also on the P=1051 and P=2081 probe codes' Z
+             graphs as lifted graphs, K5 damped and undamped (its check
+             state, then its V, in the lane's slab; K6's E, then V and E).
+             K5 and K6 count each lane's own iterations: every lane's count
+             must equal the plain count of that lane alone
  11. time    K5 and K6: 100 iterations on the gross X graph, batch 2048,
              kernel vs plain; K5 under early exit on the gross min-sum
              cell's X and Z batches (p = 0.01) and damped at the gross relay
-             cell's p = 0.03, beside bounds from the executed
+             cell's p = 0.03, K6 on the gross sum-product cell's X and Z
+             batches (p = 0.01), beside bounds from the executed
              lane-iterations
  12. main    run_monte_carlo on the gross code, depolarizing p = 0.01, 64
              chunks of 2048: min-sum held to the JAX package's record
@@ -109,7 +110,9 @@ exit) if any phase fails:
              ties vs the CPU's and NumPy's, with K7 vs plain on them
  15. time    K7 vs plain on 1,024 failed-lane inputs of [[610,61]] Z and X,
              beside its bound (the work the plain walk counts on the same
-             inputs)
+             inputs), with its profiler device time; its build and read-off
+             alone (rank 0); and its device time on the osd cell's own
+             lanes (the failed lanes of phase 14's decode)
  16. main    run_monte_carlo_osd, min-sum + device OSD-0, [[610,61]], W=40,
              p = 0.02, 8 chunks of 16,384, after a warm-up: corrected and
              convergence-fail counts held to the JAX package's record
@@ -159,8 +162,7 @@ Phases 20 and 21 share one card between their ranks, and gloo stages every
 collective through host memory: their times are not multi-card numbers.
 
 A check passes with 0 mismatches: finite messages bit for bit, NaN masks,
-decisions, failure flags and the iteration counts (each lane's, or the
-maximum for K6).  The last four lines
+decisions, failure flags and each lane's iteration count.  The last four lines
 are the wall time of ``main``, the card's ``nvidia-smi`` name and power
 limit, a JSON object describing each kernel (with its bound: the larger of its float operations
 over 67 TFLOP/s and its bytes over 3.35 TB/s; K7's integer operations over
@@ -195,10 +197,9 @@ from qec_ldpc_tpu_torch.decoder.decode import (
     decode_batch,
     syndrome_fail,
 )
-from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
 from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
 from qec_ldpc_tpu_torch.decoder.osd import OSDecoder
-from qec_ldpc_tpu_torch.decoder.osd_device import DeviceOSD0, ranking
+from qec_ldpc_tpu_torch.decoder.osd_device import ranking
 from qec_ldpc_tpu_torch.decoder.relay import relay_decode_batch
 from qec_ldpc_tpu_torch.harness.stats import CodeStatistics
 from qec_ldpc_tpu_torch.kernels import (
@@ -254,8 +255,10 @@ from workloads import (
     MAX_ITERS,
     OSD_BATCH,
     OSD_CHUNKS,
+    OSD_FAILED_SEED,
     OSD_LAM,
     OSD_P,
+    OSD_TIMED_LANES,
     OSD_WEIGHT,
     P_ERR,
     QUALITY_CHUNKS,
@@ -277,6 +280,9 @@ from workloads import (
     SHARDED_WEIGHT,
     STEPS_PER_CALL,
     WEIGHT,
+    k7_inputs,
+    osd0_args,
+    osd_failed_lanes,
 )
 
 REFERENCE_CORRECTED_FRACTION = 0.99539  # bench.py: the reference's 100k run
@@ -351,9 +357,6 @@ OPS_PER_EDGE_ITERATION = {"sum-product": 18, "min-sum": 15,
 # row the XOR of the W = ceil(n/32) + 1 words plus the pick (bit test and
 # candidate mask: 2).
 PEAK_INT32_OPS = 132 * 64 * 1.98e9
-# K7 is timed on this many failed-lane inputs (the failed lanes of one
-# phase-14 decode, repeated)
-OSD_TIMED_LANES = 1024
 # K8's launch shapes held to plain in phase 18 and timed in phase 19:
 # (lanes per CTA, partials folded into the variable phase); at 16 lanes the
 # [[5210,521]] state is in the CTA's global slab
@@ -583,6 +586,29 @@ def time_k5_early_exit(gross: CodeGraphs, device, gen: torch.Generator,
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
 
 
+def time_k6_early_exit(gross: CodeGraphs, device) -> None:
+    """Phase 11's K6 readings under early exit: the gross sum-product
+    cell's decode (depolarizing p = 0.01, a test every 10) on X and Z,
+    beside bounds from the executed lane-iterations."""
+    s01 = syndromes(gross, 0, 15, device, p_err=GROSS_P)
+    prior = np.float32(BPConfig().prior_factor) * np.float32(GROSS_P)
+    prior_t = torch.tensor(prior, device=device)
+    for side, graph, syn in (("X", gross.x, s01[0]), ("Z", gross.z, s01[1])):
+        _, iters = bp_cuda.bp_run(graph, syn, prior, MAX_ITERS, 10)
+        lane_iters = int(iters.sum())
+        bound_ms, bound_by = bound(graph, BATCH, MAX_ITERS, "sum-product",
+                                   lane_iters=lane_iters)
+        time_pair(
+            "lifted_bp early exit",
+            lambda: bp_cuda.bp_run(graph, syn, prior, MAX_ITERS, 10),
+            lambda: sum_product.bp_run(graph, syn, prior_t, MAX_ITERS, 10),
+            50, 1, graph=f"{GROSS} {side} p={GROSS_P}",
+            device_kernel="lifted_bp_kernel",
+            lane_iters=lane_iters, max_lane_iters=int(iters.max()),
+            mean_lane_iters=f"{lane_iters / BATCH:.3f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+
+
 def two_proportion_z(k1: int, n1: int, k2: int, n2: int) -> float:
     pool = (k1 + k2) / (n1 + n2)
     return (k1 / n1 - k2 / n2) / math.sqrt(pool * (1 - pool) * (1 / n1 + 1 / n2))
@@ -633,10 +659,9 @@ def flag_mismatches(got, want) -> int:
 
 
 def compare_bp(graph, syndrome, prior: np.float32, cfg: BPConfig):
-    """K1 (K6 on a lifted graph) vs plain BP on one graph.  K1 counts each
+    """K1 (K6 on a lifted graph) vs plain BP on one graph.  Both count each
     lane's own iterations: every lane's count must equal the plain count of
-    that lane alone; K6 counts per tile, so its maximum must equal the plain
-    loop's."""
+    that lane alone."""
     v_k, it_k = bp_cuda.bp_run(graph, syndrome, prior, cfg.max_iters,
                                cfg.check_every, cfg.conv_low, cfg.conv_high)
     v_p, lanes_p = sum_product.bp_run_lanes(
@@ -646,10 +671,7 @@ def compare_bp(graph, syndrome, prior: np.float32, cfg: BPConfig):
     mism, err, nans = bit_mismatches(v_k, v_p)
     mism += flag_mismatches(decide(graph, v_k, syndrome, cfg),
                             decide(graph, v_p, syndrome, cfg))
-    if isinstance(graph, CirculantGraph):
-        mism += int((it_k != lanes_p).sum())
-    else:
-        mism += int(int(it_k.max()) != int(lanes_p.max()))
+    mism += int((it_k != lanes_p).sum())
     return mism, err, int(lanes_p.max()), nans
 
 
@@ -722,20 +744,27 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     """ms per launch of the CUDA kernel whose name holds ``kernel`` over
     ``reps`` calls of ``fn()`` (one launch each), from torch.profiler's
     device time: no host work between the launches is counted.  The mean
-    is over the launches the profiler recorded, which may miss one."""
+    is over the launches the profiler recorded, which may miss some; a
+    session that recorded none of them (seen once in four runs of this
+    script) is taken again, up to three sessions."""
     fn()  # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    mine = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
-    launches = sum(e.count for e in mine)
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA]
+        mine = [e for e in on_device if kernel in e.key]
+        launches = sum(e.count for e in mine)
+        if launches:
+            break
     check(0 < launches <= reps,
-          f"the profiler saw {launches} launches of {kernel} in {reps} calls")
+          f"the profiler saw {launches} launches of {kernel} in {reps} calls "
+          f"(device events: {[(e.key[:80], e.count) for e in on_device]})")
     return 1e-3 * sum(e.self_device_time_total for e in mine) / launches
 
 
@@ -888,37 +917,6 @@ def counting(owner, name: str):
         setattr(owner, name, original)
 
 
-def osd_failed_lanes(graphs: CodeGraphs, seed: int, device, batch: int,
-                     weight: int | None = None, p_err: float | None = None):
-    """One min-sum decode with soft outputs (ler_sweep's BPConfig: at most
-    100 iterations, a check every 10); per sector (X, Z): (H, syndromes,
-    soft outputs) of the lanes it leaves syndrome-failed."""
-    gen = chunk_generator(seed, 0, device)
-    if weight is not None:
-        xe, ze = sample_weight_w_errors(gen, graphs.code.n, weight, batch)
-    else:
-        xe, ze = sample_depolarizing_errors(gen, graphs.code.n, p_err, batch)
-    sx = graphs.x.syndrome(xe.to(torch.int32))
-    sz = graphs.z.syndrome(ze.to(torch.int32))
-    res = decode_batch(graphs, sx, sz, OSD_P if p_err is None else p_err,
-                       BPConfig(max_iters=MAX_ITERS, algorithm="min-sum",
-                                return_soft=True))
-    out = []
-    for bit, h, syn, soft in ((1, graphs.code.pcm_x, sx, res.soft_x),
-                              (2, graphs.code.pcm_z, sz, res.soft_z)):
-        idx = torch.nonzero((res.error_code & bit) != 0).flatten()
-        out.append((h, syn[:, idx], soft[:, idx]))
-    return out
-
-
-def osd0_args(h, syn: torch.Tensor, soft: torch.Tensor):
-    """K7's arguments for these lanes: H's packed columns, the syndromes
-    and the ranking of the soft outputs."""
-    dev = DeviceOSD0(h)
-    return (dev.columns(syn.device), syn.to(torch.int32).contiguous(),
-            ranking(soft), dev.m, dev.n, dev.rank)
-
-
 def compare_osd0(h, syn: torch.Tensor, soft: torch.Tensor):
     """K7 vs its plain version on these lanes: (mismatches, max |diff|,
     solved lanes); the outputs are corrections, solved flags, s_final, used
@@ -1003,7 +1001,8 @@ def osd_phases(device, g610: CodeGraphs, gross: CodeGraphs, bb756: CodeGraphs,
     bound_by) per [[610,61]] sector."""
     # 14. K7 vs plain on the card ---------------------------------------------
     phase("14 K7 vs plain")
-    osd_lanes = osd_failed_lanes(g610, 15, device, OSD_BATCH, weight=OSD_WEIGHT)
+    osd_lanes = osd_failed_lanes(g610, OSD_FAILED_SEED, device, OSD_BATCH,
+                                 weight=OSD_WEIGHT)
     gross_lanes = osd_failed_lanes(gross, 16, device, BATCH,
                                    p_err=GROSS_QUALITY_P)
     lanes_756 = osd_failed_lanes(bb756, 17, device, BATCH,
@@ -1082,18 +1081,31 @@ def osd_phases(device, g610: CodeGraphs, gross: CodeGraphs, bb756: CodeGraphs,
     # 15. K7 time vs plain (OSD_TIMED_LANES failed-lane inputs) ----------------
     phase("15 K7 time")
     osd_times = {}
-    for side, (h, syn, soft) in zip("XZ", osd_lanes):
-        idx = torch.arange(OSD_TIMED_LANES, device=device) % syn.shape[1]
-        args = osd0_args(h, syn[:, idx], soft[:, idx])
+    for side, sector in zip("XZ", osd_lanes):
+        args = k7_inputs(sector)
         bound_ms, bound_by = osd0_bound(*args)
         k_ms, p_ms = time_pair(
             "osd0", lambda: osd0_cuda.osd0_solve(*args),
             lambda: osd0_cuda.osd0_solve_plain(*args), 20, 2,
-            batch=OSD_TIMED_LANES,
+            batch=OSD_TIMED_LANES, device_kernel="osd0_kernel",
             graph=f"[[610,61]] {side}",
-            distinct_lanes=syn.shape[1], bound_ms=f"{bound_ms:.4f}",
+            distinct_lanes=sector[1].shape[1], bound_ms=f"{bound_ms:.4f}",
             bound_by=bound_by)
         osd_times[side] = (k_ms, p_ms, bound_ms, bound_by)
+        # the build and read-off alone: at rank 0 the walk stops at once
+        build_only = (*args[:-1], 0)
+        say("time", kernel="osd0 build and read-off alone (rank 0)",
+            batch=OSD_TIMED_LANES, graph=f"[[610,61]] {side}",
+            kernel_ms=[round(time_ms(lambda: osd0_cuda.osd0_solve(
+                *build_only), 20), 4) for _ in range(2)],
+            kernel_device_ms=[round(device_ms(lambda: osd0_cuda.osd0_solve(
+                *build_only), 20, "osd0_kernel"), 4) for _ in range(2)])
+        # on the osd cell's own lanes: the failed lanes of one decode
+        args = osd0_args(*sector)
+        say("time", kernel="osd0 osd cell lanes", graph=f"[[610,61]] {side}",
+            batch=sector[1].shape[1], kernel_device_ms=[
+                round(device_ms(lambda: osd0_cuda.osd0_solve(*args), 20,
+                                "osd0_kernel"), 4) for _ in range(2)])
     times["osd0"] = osd_times["Z"][:2]
 
     # 16. the quality mode's main path: min-sum + device OSD-0 ------------------
@@ -1596,7 +1608,7 @@ def main() -> int:
               (f"P={PROBE_P}", "X", "fixed", probe.x, sp_bp[0], prior, fixed10),
               (f"P={PROBE_P}", "Z", "fixed", probe.z, sp_bp[1], prior, fixed10)]
     limit = placement.smem_optin(device.index)
-    placements = {f"{code} {side}": bp_cuda.plan(graph, limit)
+    placements = {f"{code} {side}": placement.bp_plan(graph, limit)
                   for code, side, _, graph, *_ in cases}
     say("plan", kernel="bp_sum_product", smem_optin=limit, placements=json.dumps(
         {k: [p.threads, p.v_shared, p.e_shared, p.smem_bytes, p.slab_floats]
@@ -1853,8 +1865,9 @@ def main() -> int:
         (GROSS, "X", "damped_early_exit", gross.x, s_gross[0], llr, ms_early,
          damping_gross))
     # the lifted slab placements: the probe codes' Z graphs as lifted graphs
-    # (P=1051: K5's check state in the lane's slab, the damping too; P=2081:
-    # V, 416 KB, in the slab), random syndromes
+    # (P=1051: K5's check state in the lane's slab, the damping too, and
+    # K6's E; P=2081: V, 416 KB, in the slab, and K6's E too), random
+    # syndromes
     for P in (PROBE_P, 2081):
         z = (probe if P == PROBE_P else CodeGraphs.build(construct_code(
             4, 5, 10, P, *find_code_params(4, 5, 10, P)[0]))).z
@@ -1873,6 +1886,19 @@ def main() -> int:
             lifted_cases["lifted_min_sum"].append(
                 (f"lifted P={P}", "Z", "damped_early_exit" if damped
                  else "early_exit", big, syn, llr, ms_early, damping))
+        # K6: E in the lane's slab at P=1051, V and E at P=2081, on the
+        # syndromes of sparse errors (random ones saturate sum-product)
+        pl = placement.bp_plan(big, limit)
+        check(pl.slab_floats > 0 and not pl.e_shared,
+              f"lifted P={P}: K6's E does not reach the slab")
+        say("plan", kernel="lifted_bp", graph=f"lifted P={P} Z",
+            placement=json.dumps([pl.threads, pl.v_shared, pl.e_shared,
+                                  pl.smem_bytes, pl.slab_floats]))
+        errors = torch.rand((big.num_vars, LIFTED_SLAB_BATCH), generator=gen,
+                            device=device) < 0.004
+        lifted_cases["lifted_bp"].append(
+            (f"lifted P={P}", "Z", "early_exit", big,
+             big.syndrome(errors.to(torch.int32)), prior, early))
     before = read_counts()
     worst["lifted_min_sum"] = run_checks(
         "lifted_min_sum", lifted_cases["lifted_min_sum"], compare_min_sum)
@@ -1903,6 +1929,7 @@ def main() -> int:
         lambda: sum_product.bp_run(gross.x, s_gross[0], prior_t, MAX_ITERS,
                                    MAX_ITERS + 1),
         50, 3, graph=f"{GROSS} X", iters=MAX_ITERS)
+    time_k6_early_exit(gross, device)
 
     # 12. the lifted main paths: bench.py's bicycle_gross workload ---------------
     phase("12 lifted main paths")

@@ -8,8 +8,9 @@ Each cell is one ``run_monte_carlo`` workload of ``chip_smoke.py`` (the
 the kernels alone: ``k1``, ``k2`` and ``k3``, ``KERNEL_DECODES`` fixed-work
 decodes (K1 sum-product, K2 min-sum, K3 layered; 100 iterations or sweeps of
 the [[610,61]] X graph at batch 2048), ``k4`` 20 iterations of the P=1051
-probe's X graph through K4, ``k5`` 100 through K5 on the gross code's X
-graph, and ``k8``, a loop
+probe's X graph through K4, ``k5`` and ``k6`` 100 through K5 and K6 on the
+gross code's X graph, ``k7`` as many OSD-0 launches (K7) on 1,024 failed
+[[610,61]] Z lanes (``workloads.k7_inputs``), and ``k8``, a loop
 of ``K8_STEPS`` graph-sharded min-sum steps (K8) of shard 0 of 2 of the
 [[5210,521]] X graph at batch 1024 (the graph-sharded cell's lanes per rank;
 ``k8-256`` and ``k8-2048`` at those batches) in one process, with no mesh,
@@ -53,8 +54,10 @@ from workloads import (
     MAX_ITERS,
     OSD_BATCH,
     OSD_CHUNKS,
+    OSD_FAILED_SEED,
     OSD_LAM,
     OSD_P,
+    OSD_TIMED_LANES,
     OSD_WEIGHT,
     P_ERR,
     RELAY_CHUNKS,
@@ -63,6 +66,8 @@ from workloads import (
     RELAY_WEIGHT,
     STEPS_PER_CALL,
     WEIGHT,
+    k7_inputs,
+    osd_failed_lanes,
 )
 
 RUNS = 3  # unprofiled timed runs per cell
@@ -97,6 +102,8 @@ CELLS = {
     "k3": ("610",),
     "k4": ("1051",),
     "k5": ("gross",),
+    "k6": ("gross",),
+    "k7": ("610",),
     "k8": ("5210", 1024),
     "k8-256": ("5210", 256),
     "k8-2048": ("5210", 2048),
@@ -156,16 +163,26 @@ def profile_kernel(name: str, graphs: CodeGraphs, device) -> dict:
     the [[610,61]] X graph through K1 (``k1``), K2 (``k2``) or K3 (``k3``)
     on weight-15 syndromes, of the P=1051 probe's X graph through K4
     (``k4``, 20 iterations, weight-258 syndromes: chip_smoke.py's phase 7
-    shape), or of the gross X graph through K5 (``k5``) on depolarizing
-    p = 0.03 syndromes (chip_smoke.py's phase 11 input).  The wrappers are
-    imported here: earlier trees of the port lack some."""
+    shape), or of the gross X graph through K5 (``k5``) or K6 (``k6``) on
+    depolarizing p = 0.03 syndromes (chip_smoke.py's phase 11 input); or
+    KERNEL_DECODES K7 launches on OSD_TIMED_LANES failed [[610,61]] Z lanes
+    (``k7``: chip_smoke.py's phase 15 input).  The wrappers are imported
+    here: earlier trees of the port lack some."""
     from qec_ldpc_tpu_torch.decoder.min_sum import prior_llr
-    from qec_ldpc_tpu_torch.kernels import bp_cuda, layered_cuda, min_sum_cuda
+    from qec_ldpc_tpu_torch.kernels import (
+        bp_cuda,
+        layered_cuda,
+        min_sum_cuda,
+        osd0_cuda,
+    )
     from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
     from qec_ldpc_tpu_torch.sampling import errors
 
     gen = chunk_generator(7, 0, device)
-    if name == "k5":
+    if name == "k7":
+        k7 = k7_inputs(osd_failed_lanes(graphs, OSD_FAILED_SEED, device,
+                                        OSD_BATCH, weight=OSD_WEIGHT)[1])
+    if name in ("k5", "k6"):
         xe, _ = errors.sample_depolarizing_errors(gen, graphs.code.n, 0.03, BATCH)
     else:
         xe, _ = errors.sample_weight_w_errors(
@@ -185,6 +202,9 @@ def profile_kernel(name: str, graphs: CodeGraphs, device) -> dict:
             graphs.x, syn, llr, 20, 21)),
         "k5": ("lifted_min_sum_kernel", lambda: min_sum_cuda.min_sum_run(
             graphs.x, syn, llr, MAX_ITERS, MAX_ITERS + 1)),
+        "k6": ("lifted_bp_kernel", lambda: bp_cuda.bp_run(
+            graphs.x, syn, prior, MAX_ITERS, MAX_ITERS + 1)),
+        "k7": ("osd0_kernel", lambda: osd0_cuda.osd0_solve(*k7)),
     }[name]
 
     def run():
@@ -197,8 +217,8 @@ def profile_kernel(name: str, graphs: CodeGraphs, device) -> dict:
     return {
         "cell": name,
         "decodes": KERNEL_DECODES,
-        "batch": BATCH,
-        "iterations": 20 if name == "k4" else MAX_ITERS,
+        "batch": OSD_TIMED_LANES if name == "k7" else BATCH,
+        "iterations": {"k4": 20, "k7": None}.get(name, MAX_ITERS),
         "wall_ms_per_decode": 1e3 * min(walls) / KERNEL_DECODES,
         "device_busy_ms_per_decode": 1e-3 * busy_us / KERNEL_DECODES,
         "decode_kernel": kernel,
@@ -317,7 +337,7 @@ def main() -> int:
         code = CELLS[name][0]
         if code not in graphs:
             graphs[code] = build_graphs(code)
-        if name in ("k1", "k2", "k3", "k4", "k5"):
+        if name in ("k1", "k2", "k3", "k4", "k5", "k6", "k7"):
             print(json.dumps(profile_kernel(name, graphs[code], device)),
                   flush=True)
             continue

@@ -1,9 +1,9 @@
 // The lifted-graph description read by both lifted kernels
 // (csrc/lifted_min_sum.cu and csrc/lifted_bp.cu): their compile-time limits,
-// the by-value graph and its validation on the host; and, for the
-// sum-product kernel, its 16-lane tile and the variable-side routing (the
-// min-sum kernel runs one lane per CTA and resolves the routing on the
-// host).  kernels/launch.py::lifted_description builds the host tables.
+// the by-value graph and its validation on the host, and the variable-side
+// routing resolved on the host (RankEdge, Routing).  Both kernels run one
+// lane per CTA.  kernels/launch.py::lifted_description builds the host
+// tables.
 //
 // Messages are (E*P, batch) float32 with the batch trailing, edge blocks in
 // check-major order (check row c owns blocks c*Dc .. c*Dc+Dc-1), each
@@ -22,8 +22,6 @@ namespace {
 constexpr int kMaxEdgeBlocks = 64;
 constexpr int kMaxDc = 16;     // check degree (edge blocks per check row)
 constexpr int kMaxDv = 8;      // variable degree (edge blocks per var column)
-constexpr int kTile = 16;      // batch lanes per block (lifted_bp.cu)
-constexpr int kThreads = 512;  // kThreads / kTile row groups per block
 
 struct Lifted {
   int l, m, P;                   // lift group Z_l x Z_m, P = l*m
@@ -73,15 +71,39 @@ inline bool describe_lifted(Lifted* g, const int32_t* edges,
   return true;
 }
 
-// The message row of var lane (q1, q2)'s edge in block `eb`: the check lane
-// ((q1 - a) mod l, (q2 - b) mod m) of that block.
-__device__ __forceinline__ int var_edge_row(const Lifted& g, int eb, int q1,
-                                            int q2) {
-  int r1 = q1 - g.shift_a[eb];
-  if (r1 < 0) r1 += g.l;
-  int r2 = q2 - g.shift_b[eb];
-  if (r2 < 0) r2 += g.m;
-  return eb * g.P + r1 * g.m + r2;
+// One rank entry i*V + vb of the variable side: edge block eb =
+// rank_edge[i*V + vb] resolved into what a variable phase needs.  Variable
+// (vb, q1, q2)'s rank-i edge is check lane r = ((q1 - a) mod l)*m +
+// (q2 - b) mod m of block eb: message row edge_base + r, check row
+// check_base + r, position d in that check row.
+struct RankEdge {
+  int a, b;        // the block's shift, in [0, l) x [0, m)
+  int edge_base;   // eb * P: the block's first message row
+  int check_base;  // (eb / Dc) * P: its check row's first check
+  int d;           // eb % Dc: its position in the check row
+};
+
+struct Routing {
+  int l, m, P, C, V, Dc;
+  RankEdge rank[kMaxEdgeBlocks];
+};
+
+// The routing of a graph describe_lifted accepted, with E edge blocks.
+inline Routing resolve_routing(const Lifted& lg, int E) {
+  Routing g;
+  g.l = lg.l;
+  g.m = lg.m;
+  g.P = lg.P;
+  g.C = lg.C;
+  g.V = lg.V;
+  g.Dc = lg.Dc;
+  for (int i = 0; i < kMaxEdgeBlocks; ++i) g.rank[i] = RankEdge{0, 0, 0, 0, 0};
+  for (int i = 0; i < E; ++i) {
+    const int eb = lg.rank_edge[i];
+    g.rank[i] = RankEdge{lg.shift_a[eb], lg.shift_b[eb], eb * lg.P,
+                         (eb / lg.Dc) * lg.P, eb % lg.Dc};
+  }
+  return g;
 }
 
 }  // namespace

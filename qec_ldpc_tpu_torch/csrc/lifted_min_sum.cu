@@ -52,8 +52,9 @@
 //     check lane r = ((q1 - a) mod l)*m + (q2 - b) mod m of edge block eb;
 //     the launcher resolves each rank entry's eb into its shifts, its edge
 //     row base eb*P, its check row base (eb / Dc)*P and its position
-//     eb % Dc, passed by value.  The variable degree Dv is a template
-//     parameter (exact arrays, no guards); threads walk the checks, then the
+//     eb % Dc (csrc/lifted.cuh's Routing, shared with K6), passed by
+//     value.  The variable degree Dv is a template parameter (exact
+//     arrays, no guards); threads walk the checks, then the
 //     variables, with the stride's index steps precomputed; the convergence
 //     test rides on the second barrier (__syncthreads_or).
 //
@@ -77,20 +78,6 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
-
-// One rank entry i*V + vb of the variable side: edge block eb =
-// rank_edge[i*V + vb] resolved into what the variable phase needs.
-struct RankEdge {
-  int a, b;        // the block's shift, in [0, l) x [0, m)
-  int edge_base;   // eb * P: the block's first message row
-  int check_base;  // (eb / Dc) * P: its check row's first check
-  int d;           // eb % Dc: its position in the check row
-};
-
-struct Routing {
-  int l, m, P, C, V, Dc;
-  RankEdge rank[kMaxEdgeBlocks];
-};
 
 // Where a lane's arrays live: as csrc/min_sum.cu's placement, from
 // kernels/min_sum_cuda.py::plan; the kernel lays them out in plan's order:
@@ -300,19 +287,7 @@ extern "C" int qec_lifted_min_sum(const int32_t* syndrome, float* v,
       (slab_floats > 0 && scratch == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  Routing g;
-  g.l = lg.l;
-  g.m = lg.m;
-  g.P = lg.P;
-  g.C = lg.C;
-  g.V = lg.V;
-  g.Dc = lg.Dc;
-  for (int i = 0; i < kMaxEdgeBlocks; ++i) g.rank[i] = RankEdge{0, 0, 0, 0, 0};
-  for (int i = 0; i < E; ++i) {
-    const int eb = lg.rank_edge[i];
-    g.rank[i] = RankEdge{lg.shift_a[eb], lg.shift_b[eb], eb * lg.P,
-                         (eb / Dc) * lg.P, eb % Dc};
-  }
+  const Routing g = resolve_routing(lg, E);
   const Placement pl{v_shared != 0, state_shared != 0, damping_shared != 0};
   const bool all = slab_floats == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -220,10 +220,10 @@ def decode_batch(
     """Decode both graphs with ``cfg.algorithm`` (one of ``ALGORITHMS``).
 
     ``iter_samples_*`` counts executed lane-iterations: on the kernel path
-    each lane's own count for circulant sum-product (K1), min-sum (K2/K4),
-    layered min-sum (K3) and lifted min-sum (K5), and its 16-lane tile's
-    count for lifted sum-product (K6) (JAX's Pallas kernels count per
-    128-lane tile); iterations x batch on the plain path, as in JAX."""
+    each lane's own count, for sum-product (K1, K6 on a lifted graph),
+    min-sum (K2/K4, K5) and layered min-sum (K3) alike (JAX's Pallas
+    kernels count per 128-lane tile); iterations x batch on the plain path,
+    as in JAX."""
     if cfg.algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}; expected one "
                          f"of {ALGORITHMS}")

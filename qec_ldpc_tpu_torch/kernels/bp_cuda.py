@@ -6,11 +6,11 @@ BP loop of one circulant graph in one launch, one lane per CTA.
 and launches the kernel on the current CUDA stream for a CUDA tensor; for a
 CPU tensor it runs the plain version, ``decoder/sum_product.bp_run``.  There
 is no fallback: a CUDA tensor either runs the kernel or raises (a launch the
-card refuses, for shared memory or threads, raises too).  :func:`plan`
-decides per graph and device which of a lane's message arrays fit in shared
-memory and which go to a per-lane slab of global scratch.  A
-``LiftedGraph`` goes to ``lifted_bp_cuda.lifted_bp_run`` (K6's kernel), as
-the JAX dispatch does.
+card refuses, for shared memory or threads, raises too).
+``placement.bp_plan`` decides per graph and device which of a lane's message
+arrays fit in shared memory and which go to a per-lane slab of global
+scratch.  A ``LiftedGraph`` goes to ``lifted_bp_cuda.lifted_bp_run`` (K6's
+kernel, placed by the same plan), as the JAX dispatch does.
 
 ``launches`` counts kernel launches (never the plain path), so a run can
 show that its decodes went through the kernel.
@@ -19,7 +19,6 @@ show that its decodes went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import numpy as np
@@ -38,43 +37,6 @@ SOURCES = ("bp_sum_product.cu",)
 
 #: number of kernel launches made by :func:`bp_run` in this process
 launches = 0
-
-
-def _align16(n: int) -> int:
-    return (n + 15) // 16 * 16
-
-
-@dataclasses.dataclass(frozen=True)
-class Plan:
-    """Where one lane's V and E live, and the CTA size: what the launcher
-    is given (the kernel lays the arrays out in :func:`plan`'s order)."""
-
-    threads: int
-    v_shared: bool
-    e_shared: bool
-    smem_bytes: int      # dynamic shared memory per CTA
-    slab_floats: int     # float32 global scratch per lane
-
-
-def plan(graph: CirculantGraph, smem_limit: int) -> Plan:
-    """The kernel's placement for ``graph`` on a device whose CTA may take
-    ``smem_limit`` bytes of shared memory (its opt-in limit, 227 KB on an
-    H100): the syndrome bits (a byte per check) always in shared memory,
-    then, while they fit, V and E (4 bytes per edge each); the rest in the
-    lane's global slab.  Each array starts 16-byte aligned, in shared memory
-    and in the slab.  Threads: one per two variables, a multiple of 32 in
-    [128, 1024], so that an iteration is one or two passes over the lane's
-    checks and variables."""
-    msg_bytes = _align16(4 * graph.num_edges)
-    used, slab_bytes = _align16(graph.num_checks), 0
-    placed = []
-    for _ in ("V", "E"):
-        fits = used + msg_bytes <= smem_limit
-        used += msg_bytes if fits else 0
-        slab_bytes += 0 if fits else msg_bytes
-        placed.append(fits)
-    threads = min(1024, max(128, -(-graph.num_vars // 64) * 32))
-    return Plan(threads, *placed, used, slab_bytes // 4)
 
 
 #: the C types of ``qec_bp_sum_product``'s parameters, in order
@@ -130,7 +92,8 @@ def bp_run(
         return v, n.expand(batch).clone()
     launch.check_cuda_args(graph, syndrome, MAX_VAR_DEGREE, MAX_CHECK_DEGREE)
     lib = _library()
-    pl = plan(graph, placement.smem_optin(syndrome.device.index))
+    pl = placement.bp_plan(graph,
+                           placement.smem_optin(syndrome.device.index))
     v = torch.empty((graph.num_edges, batch), dtype=torch.float32,
                     device=syndrome.device)
     scratch = (torch.empty((batch * pl.slab_floats,), dtype=torch.float32,

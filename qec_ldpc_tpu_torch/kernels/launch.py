@@ -11,12 +11,15 @@ value and PyTorch's current stream; its C launcher returns a
 from __future__ import annotations
 
 import ctypes
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
-from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
-from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
+if TYPE_CHECKING:  # annotations only: the decoder imports the kernels
+    from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
+    from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
+
 
 def check_run_args(graph: CirculantGraph | LiftedGraph, syndrome: torch.Tensor,
                    max_iters: int, check_every: int, graph_type: type) -> None:

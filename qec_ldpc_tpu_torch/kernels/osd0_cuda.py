@@ -15,25 +15,27 @@ versions stand beside the kernel:
 :func:`osd0_solve` checks its arguments and launches the kernel on the
 current CUDA stream for CUDA tensors; for CPU tensors it runs
 :func:`osd0_solve_plain`.  There is no fallback: a CUDA tensor either runs
-the kernel or raises.  ``launches`` counts kernel launches (never the plain
-path).
+the kernel or raises.  :func:`plan` sizes the CTA (its threads, the rows
+each lane of the walk warp holds, its shared memory) from m, n and the
+device's opt-in limit.  ``launches`` counts kernel launches (never the
+plain path).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 
-from qec_ldpc_tpu_torch.kernels import build, launch
+from qec_ldpc_tpu_torch.kernels import build, launch, placement
 
 SOURCES = ("osd0.cu",)
 
-#: the kernel's limits: one thread per parity row, the system in shared memory
+#: the kernel's row limit (kMaxRows): the walk warp holds up to 32 rows a lane
 MAX_ROWS = 1024
-MAX_SHARED_BYTES = 232448
 
 #: number of kernel launches made by :func:`osd0_solve` in this process
 launches = 0
@@ -140,13 +142,46 @@ def osd0_solve_plain(hcols: torch.Tensor, syndromes: torch.Tensor,
     return e, solved, s_final, used, pivcol
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The kernel's CTA for an (m, n) system: what the launcher is given."""
+
+    threads: int
+    rows_per_lane: int   # rows of word k each lane of the walk warp holds
+    smem_bytes: int      # dynamic shared memory per CTA
+
+
+def plan(m: int, n: int, smem_limit: int) -> Plan:
+    """The kernel's CTA for an (m, n) system on a device whose CTA may take
+    ``smem_limit`` bytes of shared memory (its opt-in limit, 227 KB on an
+    H100).  One lane's system lives in shared memory, plane-major: ``w + 1``
+    words per row (``w = ceil(n/32)``, the syndrome plane last), each row's
+    panel mask and pivot column, and a panel's table of pivot-row xors (8
+    groups of 16 words per trailing word).  The walk warp holds
+    ``ceil(m/32)`` rows a lane, rounded up to even (the kernel's template
+    instances); threads: one per row, a multiple of 32 in [64, 256], so
+    that several CTAs share an SM.  Raises ``ValueError`` for a system the
+    kernel cannot hold."""
+    w = -(-n // 32)
+    smem = 4 * ((w + 1) * m + 2 * m + 128 * w)
+    if m > MAX_ROWS or smem > smem_limit:
+        raise ValueError(f"an (m={m}, n={n}) system exceeds the kernel's "
+                         f"{MAX_ROWS} rows or the device's {smem_limit} "
+                         f"bytes of shared memory")
+    return Plan(min(256, max(64, 32 * -(-m // 32))), 2 * -(-m // 64), smem)
+
+
+#: the C types of ``qec_osd0``'s parameters, in order
+ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    ctypes.c_longlong, ctypes.c_void_p]
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The built library with the launcher's C signature declared."""
     lib = build.load("qec_osd0", SOURCES)
-    fn = lib.qec_osd0
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.qec_osd0.argtypes = ARGTYPES
+    lib.qec_osd0.restype = ctypes.c_int
     return lib
 
 
@@ -184,12 +219,9 @@ def osd0_solve(
         return osd0_solve_plain(hcols, syndromes, order, m, n, rank)
     for t in (hcols, syndromes, order):
         launch.check_device(t)
-    if m > MAX_ROWS or 4 * m * (-(-n // 32) + 1) > MAX_SHARED_BYTES:
-        raise ValueError(f"an (m={m}, n={n}) system exceeds the kernel's "
-                         f"{MAX_ROWS} rows or {MAX_SHARED_BYTES} bytes of "
-                         f"shared memory")
-    lanes = order.shape[0]
     device = syndromes.device
+    pl = plan(m, n, placement.smem_optin(device.index))
+    lanes = order.shape[0]
     e = torch.empty((n, lanes), dtype=torch.uint8, device=device)
     solved = torch.empty((lanes,), dtype=torch.uint8, device=device)
     s_final = torch.empty((lanes, m), dtype=torch.uint8, device=device)
@@ -203,6 +235,7 @@ def osd0_solve(
                            order.data_ptr(), e.data_ptr(), solved.data_ptr(),
                            s_final.data_ptr(), used.data_ptr(),
                            pivcol.data_ptr(), m, n, rank, lanes,
+                           pl.threads, pl.rows_per_lane, pl.smem_bytes,
                            launch.stream_of(device))
     launch.raise_on_error("qec_osd0", err)
     launches += 1

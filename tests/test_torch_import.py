@@ -13,8 +13,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "qec_ldpc_tpu_torch"
 PORT_FILES = sorted(p for p in PORT.rglob("*.py") if "_build" not in p.parts) + [
     ROOT / "chip_smoke.py", ROOT / "profile_cells.py", ROOT / "workloads.py",
-    # the rank functions that spawned processes import
-    ROOT / "tests" / "torch_mesh_workers.py"]
+    # the rank functions that spawned processes import, and the OSD-0
+    # kernel's corner cases, which the card's test run imports
+    ROOT / "tests" / "torch_mesh_workers.py", ROOT / "tests" / "osd0_cases.py"]
+KERNEL_MODULES = sorted(p.stem for p in (PORT / "kernels").glob("*.py")
+                        if p.stem != "__init__")
 
 IMPORT_JAX = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
 IMPORT_REFERENCE = re.compile(r"^\s*(?:import|from)\s+qec_ldpc_tpu(?!_torch)\b",
@@ -46,6 +49,17 @@ def test_import_leaves_jax_out():
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", KERNEL_MODULES)
+def test_kernel_module_imports_first(module):
+    """Each module of ``kernels/`` imports in a fresh process before
+    anything else of the port: the kernels and the decoder import each
+    other, so a module-level use of a half-imported one would fail."""
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import qec_ldpc_tpu_torch.kernels.{module}"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
 

@@ -142,7 +142,7 @@ def test_slab_route_matches_plain_on_cuda(cuda_device):
     s, t = find_code_params(4, 5, 10, 1051)[0]
     graphs = CodeGraphs.build(construct_code(4, 5, 10, 1051, s, t))
     graph = graphs.z
-    pl = bp_cuda.plan(graph, placement.smem_optin(cuda_device.index))
+    pl = placement.bp_plan(graph, placement.smem_optin(cuda_device.index))
     assert pl.v_shared and not pl.e_shared and pl.slab_floats > 0
     syn = syndrome(graph, graphs.code.n, 26, 128, cuda_device)
     compare_on_cuda(graph, syn, 10, 11)

@@ -190,9 +190,8 @@ def test_limits_raise_before_launch():
 
 
 def compare_on_cuda(graph, syn, max_iters, check_every, damping=None):
-    """K5 (each lane's ``iters`` the plain count of that lane alone) and,
-    undamped, K6 (a tile's count: its maximum the plain loop's) against
-    their plain versions."""
+    """K5 and, undamped, K6 against their plain versions: each lane's
+    ``iters`` the plain count of that lane alone."""
     before = counts()
     v, iters = min_sum_cuda.min_sum_run(graph, syn, LLR, max_iters,
                                         check_every, damping=damping)
@@ -203,11 +202,12 @@ def compare_on_cuda(graph, syn, max_iters, check_every, damping=None):
     assert torch.equal(iters, lanes_p)
     if damping is None:
         b, it_b = bp_cuda.bp_run(graph, syn, PRIOR, max_iters, check_every)
-        b_p, nb_p = sum_product.bp_run(graph, syn, torch.tensor(PRIOR, device=syn.device),
-                                       max_iters, check_every)
+        b_p, lanes_b = sum_product.bp_run_lanes(
+            graph, syn, torch.tensor(PRIOR, device=syn.device), max_iters,
+            check_every)
         torch.cuda.synchronize()
         assert_same(b, b_p)
-        assert int(it_b.max()) == int(nb_p)
+        assert torch.equal(it_b, lanes_b)
     after = counts()
     assert after[0] == before[0] + 1
     assert after[1] == before[1] + (damping is None)
@@ -247,9 +247,8 @@ def test_hypergraph_kernels_match_plain_on_cuda(cuda_device, build_code):
 @pytest.mark.cuda
 def test_one_dimensional_group_matches_circulant_kernel(cuda_device):
     """``LiftedGraph.from_circulant`` of [[610,61]] through K5/K6 equals the
-    circulant kernels K2/K1 bit for bit.  K1, K2 and K5 count each lane's
-    own iterations, K6 its 16-lane tile's: K5's counts equal K2's, and K6's
-    are K1's tile maxima."""
+    circulant kernels K2/K1 bit for bit.  All four count each lane's own
+    iterations: K5's counts equal K2's, and K6's K1's."""
     code = codes.construct_code(4, 5, 10, 61, 9, 49)
     cg = CodeGraphs.build(code).x
     lg = LiftedGraph.from_circulant(cg.table, cg.P)
@@ -261,11 +260,7 @@ def test_one_dimensional_group_matches_circulant_kernel(cuda_device):
         v_l, it_l = run(lg, syn, arg, 60, 10)
         torch.cuda.synchronize()
         assert_same(v_l, v_c)
-        if run is bp_cuda.bp_run:
-            tiles = it_c.reshape(-1, 16).amax(dim=1)
-            assert torch.equal(tiles.repeat_interleave(16), it_l)
-        else:
-            assert torch.equal(it_l, it_c)
+        assert torch.equal(it_l, it_c)
 
 
 @pytest.mark.cuda
@@ -297,7 +292,39 @@ def test_large_lift_slab_on_cuda(cuda_device, P, damped):
     assert lifted_min_sum_cuda.launches == before + 2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1051, 2081])
+def test_large_lift_slab_sum_product_on_cuda(cuda_device, P):
+    """K6 on the probe codes' Z graphs as lifted graphs: at P=1051 its E in
+    the lane's slab (V on chip, 210 KB), at P=2081 V and E (416 KB each)."""
+    s, t = codes.find_code_params(4, 5, 10, P)[0]
+    z = CodeGraphs.build(codes.construct_code(4, 5, 10, P, s, t)).z
+    graph = LiftedGraph.from_circulant(z.table, P)
+    pl = placement.bp_plan(graph, placement.smem_optin(cuda_device.index))
+    assert pl.slab_floats > 0 and not pl.e_shared and pl.v_shared == (P == 1051)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(P + 1)
+    errors = torch.rand((graph.num_vars, 64), generator=g, device=cuda_device)
+    syn = graph.syndrome((errors < 0.004).to(torch.int32))
+    prior = torch.tensor(PRIOR, device=cuda_device)
+    before = lifted_bp_cuda.launches
+    for max_iters, check_every in ((20, 21), (60, 10)):
+        v, iters = bp_cuda.bp_run(graph, syn, PRIOR, max_iters, check_every)
+        v_p, lanes_p = sum_product.bp_run_lanes(graph, syn, prior, max_iters,
+                                                check_every)
+        torch.cuda.synchronize()
+        assert_same(v, v_p)
+        assert torch.equal(iters, lanes_p)
+    assert lifted_bp_cuda.launches == before + 2
+
+
 def test_lifted_min_sum_signature_matches_argtypes():
     src = (build.CSRC_DIR / "lifted_min_sum.cu").read_text()
     sig = re.search(r'extern "C" int qec_lifted_min_sum\(([^)]*)\)', src).group(1)
     assert len(sig.split(",")) == len(lifted_min_sum_cuda.ARGTYPES)
+
+
+def test_lifted_bp_signature_matches_argtypes():
+    src = (build.CSRC_DIR / "lifted_bp.cu").read_text()
+    sig = re.search(r'extern "C" int qec_lifted_bp\(([^)]*)\)', src).group(1)
+    assert len(sig.split(",")) == len(lifted_bp_cuda.ARGTYPES)

@@ -6,7 +6,7 @@ on the CPU against the JAX package.
   the batch, bit for bit, and each lane's count is JAX ``bp_run``'s count
   for that lane decoded alone, early exit and fixed work, on [[42]] and a
   small [[610,61]] batch.  The same NumPy syndromes feed both packages.
-* ``bp_cuda.plan``, the owner of a lane's placement: V and E in shared
+* ``placement.bp_plan``, the owner of a lane's placement: V and E in shared
   memory while they fit in the device's limit, the rest in the lane's slab.
 """
 
@@ -24,7 +24,7 @@ from qec_ldpc_tpu_torch.codes import find_code_params
 from qec_ldpc_tpu_torch.convert import graph_from_jax
 from qec_ldpc_tpu_torch.decoder import sum_product
 from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs
-from qec_ldpc_tpu_torch.kernels import bp_cuda
+from qec_ldpc_tpu_torch.kernels import placement
 
 CODES = {"42": ((3, 3, 6, 7, 2, 3), 3, 24), "610": ((4, 5, 10, 61, 9, 49), 48, 16)}
 PRIOR = np.float32(2.0 / 3.0) * np.float32(0.01)
@@ -112,25 +112,25 @@ def test_plan_keeps_the_main_path_on_chip():
     g610 = CodeGraphs.build(construct_code(4, 5, 10, 61, 9, 49))
     g521 = CodeGraphs.build(construct_code(4, 5, 10, 521, 25, 1))
     for graph in (g610.x, g610.z, g521.x, g521.z):
-        pl = bp_cuda.plan(graph, H100_SMEM)
+        pl = placement.bp_plan(graph, H100_SMEM)
         assert (pl.v_shared, pl.e_shared, pl.slab_floats) == (True, True, 0)
         assert pl.smem_bytes == aligned(graph.num_checks) + 2 * aligned(4 * graph.num_edges)
-    assert bp_cuda.plan(g610.x, H100_SMEM).threads == 320
-    assert bp_cuda.plan(g521.z, H100_SMEM).threads == 1024
+    assert placement.bp_plan(g610.x, H100_SMEM).threads == 320
+    assert placement.bp_plan(g521.z, H100_SMEM).threads == 1024
     probes = {}
     for P in (1051, 4201):
         s, t = find_code_params(4, 5, 10, P)[0]
         probes[P] = CodeGraphs.build(construct_code(4, 5, 10, P, s, t))
     for graph in (probes[1051].x, probes[1051].z):
-        pl = bp_cuda.plan(graph, H100_SMEM)
+        pl = placement.bp_plan(graph, H100_SMEM)
         assert pl.v_shared and not pl.e_shared
         assert pl.slab_floats == aligned(4 * graph.num_edges) // 4
-    p4 = bp_cuda.plan(probes[4201].z, H100_SMEM)
+    p4 = placement.bp_plan(probes[4201].z, H100_SMEM)
     assert not p4.v_shared and not p4.e_shared
     assert p4.slab_floats == 2 * aligned(4 * probes[4201].z.num_edges) // 4
     for graph in (probes[1051].x, probes[1051].z, probes[4201].x,
                   probes[4201].z, g610.x):
-        pl = bp_cuda.plan(graph, H100_SMEM)
+        pl = placement.bp_plan(graph, H100_SMEM)
         assert pl.smem_bytes <= H100_SMEM
         assert pl.threads % 32 == 0 and 128 <= pl.threads <= 1024
 
@@ -143,7 +143,7 @@ def test_plan_follows_the_device_limit(limit):
     graph = CodeGraphs.build(construct_code(4, 5, 10, 61, 9, 49)).z
     syn_bytes = aligned(graph.num_checks)
     msg = aligned(4 * graph.num_edges)
-    pl = bp_cuda.plan(graph, limit)
+    pl = placement.bp_plan(graph, limit)
     assert pl.smem_bytes <= limit
     assert pl.v_shared == (syn_bytes + msg <= limit)
     assert pl.e_shared == (syn_bytes + msg * (1 + pl.v_shared) <= limit)

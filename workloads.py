@@ -1,8 +1,9 @@
 """The Monte-Carlo workloads of the port's chip runs, defined once:
 ``chip_smoke.py`` drives and gates them, ``profile_cells.py`` profiles them.
-Plain constants, so that ``profile_cells.py`` also runs against an earlier
-tree of the port.  At batch 2048, 8 chunks per host fetch, except the OSD
-quality mode, which reads the host once per chunk by design."""
+Plain constants, and helpers that import the port only when called, so that
+``profile_cells.py`` also runs against an earlier tree of the port.  At
+batch 2048, 8 chunks per host fetch, except the OSD quality mode, which
+reads the host once per chunk by design."""
 
 BATCH = 2048
 STEPS_PER_CALL = 8
@@ -37,6 +38,10 @@ OSD_P = 0.02
 OSD_BATCH = 16384
 OSD_CHUNKS = 8
 OSD_LAM = 0
+# K7 alone: the failed [[610,61]] Z lanes that one decode of the osd cell's
+# shape leaves (seed OSD_FAILED_SEED), repeated to OSD_TIMED_LANES inputs
+OSD_FAILED_SEED = 15
+OSD_TIMED_LANES = 1024
 
 # the host-OSD quality stacks: layered min-sum + relay 12 + OSD-60 on
 # [[610,61]] at W = 40 (quality_sweep_r5.jsonl line 5), and the gross code,
@@ -73,3 +78,58 @@ SHARDED_RELAY_REFERENCE_CHUNKS = 16
 # 2048
 K8_BATCHES = (256, SHARDED_BATCH, 2048)
 K8_STEPS = 30  # steps per profiled loop (profile_cells.py --cells k8)
+
+
+def osd_failed_lanes(graphs, seed: int, device, batch: int,
+                     weight: int | None = None, p_err: float | None = None):
+    """One min-sum decode with soft outputs (ler_sweep's BPConfig: at most
+    MAX_ITERS iterations, a check every 10) of weight-``weight`` Pauli errors
+    (at OSD_P) or depolarizing ones at ``p_err``; per sector (X, Z): (H,
+    syndromes, soft outputs) of the lanes it leaves syndrome-failed."""
+    import torch
+
+    from qec_ldpc_tpu_torch.decoder.decode import BPConfig, decode_batch
+    from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
+    from qec_ldpc_tpu_torch.sampling.errors import (
+        sample_depolarizing_errors,
+        sample_weight_w_errors,
+    )
+
+    gen = chunk_generator(seed, 0, device)
+    if weight is not None:
+        xe, ze = sample_weight_w_errors(gen, graphs.code.n, weight, batch)
+    else:
+        xe, ze = sample_depolarizing_errors(gen, graphs.code.n, p_err, batch)
+    sx = graphs.x.syndrome(xe.to(torch.int32))
+    sz = graphs.z.syndrome(ze.to(torch.int32))
+    res = decode_batch(graphs, sx, sz, OSD_P if p_err is None else p_err,
+                       BPConfig(max_iters=MAX_ITERS, algorithm="min-sum",
+                                return_soft=True))
+    out = []
+    for bit, h, syn, soft in ((1, graphs.code.pcm_x, sx, res.soft_x),
+                              (2, graphs.code.pcm_z, sz, res.soft_z)):
+        idx = torch.nonzero((res.error_code & bit) != 0).flatten()
+        out.append((h, syn[:, idx], soft[:, idx]))
+    return out
+
+
+def osd0_args(h, syn, soft):
+    """K7's arguments for these lanes: H's packed columns, the syndromes
+    and the ranking of the soft outputs, then m, n and H's rank."""
+    import torch
+
+    from qec_ldpc_tpu_torch.decoder.osd_device import DeviceOSD0, ranking
+
+    dev = DeviceOSD0(h)
+    return (dev.columns(syn.device), syn.to(torch.int32).contiguous(),
+            ranking(soft), dev.m, dev.n, dev.rank)
+
+
+def k7_inputs(sector, lanes: int = OSD_TIMED_LANES):
+    """K7's arguments for ``lanes`` inputs made of one sector's failed lanes
+    (an item of :func:`osd_failed_lanes`), repeated in order."""
+    import torch
+
+    h, syn, soft = sector
+    idx = torch.arange(lanes, device=syn.device) % syn.shape[1]
+    return osd0_args(h, syn[:, idx], soft[:, idx])
