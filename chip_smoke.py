@@ -157,6 +157,23 @@ exit) if any phase fails:
              detects printed, and every lane that reports no syndrome
              failure (every repaired lane among them) satisfies its
              syndrome
+ 22. CLI     the experiment CLI (``harness.cli.main``) in this process on
+             the card, with a temporary results directory, each call with
+             every launch count set to 0 just before it and read just
+             after: (a) the headline sweep W = 14..16 (131,072 samples a
+             weight, the dynamic sampler: every run_id ends
+             ``|wcap=16|torch=cuda``) through K1, W=15 held to bench.py's
+             gate, each result file named by ``format_result_filename`` and
+             parsed by ``parse_reference_text``, and the same call again
+             resuming every point with no new journal line and the same
+             records; (b) the quality mode (min-sum + OSD-0, W=40,
+             p = 0.02, 8 chunks of 16,384) through K2 and K7, 0 syndrome
+             failures, corrected held to quality_sweep_r5.jsonl line 10
+             (|z| < 4); (c) the gross code, depolarizing p = 0.01, 262,144
+             samples through K6, held to GROSS_SUM_PRODUCT (|z| < 4); (d) a
+             4,096-sample headline run with ``--profile_dir``, whose trace
+             must name ``bp_sum_product_kernel``; each point's samples/s is
+             printed beside the card's name and power limit
 
 Phases 20 and 21 share one card between their ranks, and gloo stages every
 collective through host memory: their times are not multi-card numbers.
@@ -178,6 +195,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -201,7 +219,8 @@ from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
 from qec_ldpc_tpu_torch.decoder.osd import OSDecoder
 from qec_ldpc_tpu_torch.decoder.osd_device import ranking
 from qec_ldpc_tpu_torch.decoder.relay import relay_decode_batch
-from qec_ldpc_tpu_torch.harness.stats import CodeStatistics
+from qec_ldpc_tpu_torch.harness import cli, format_result_filename
+from qec_ldpc_tpu_torch.harness.stats import CodeStatistics, parse_reference_text
 from qec_ldpc_tpu_torch.kernels import (
     bp_cuda,
     build,
@@ -231,6 +250,7 @@ from qec_ldpc_tpu_torch.sampling import (
     C_SYN_X,
     C_SYN_Z,
     C_TESTED,
+    NUM_COUNTERS,
     make_rank_basis_test,
 )
 from qec_ldpc_tpu_torch.sampling.errors import (
@@ -1542,6 +1562,168 @@ def mesh_phases() -> int:
     return sum(k8.values())
 
 
+# -- phase 22: the experiment CLI ---------------------------------------------
+
+# a result record's fields, by counter index
+RECORD_FIELDS = {C_TESTED: "Errors Tested", C_CORRECTED: "Corrected",
+                 C_SYN_X: "Syndrome Errors X", C_SYN_Z: "Syndrome Errors Z",
+                 C_LOGICAL: "Logical Errors", C_CONV_X: "Convergence Fail X",
+                 C_CONV_Z: "Convergence Fail Z"}
+HEADLINE_SPEC = "qc:" + ",".join(map(str, HEADLINE_CODE))
+CLI_HEADLINE_WEIGHTS = (14, 16)
+GROSS_CLI_SAMPLES = 262144
+CLI_TRACE_SAMPLES = 4096
+
+
+def cli_call(label: str, argv: list) -> dict:
+    """``harness.cli.main(argv)`` on the card with every launch count set to
+    0 just before it and read just after; returns the counts."""
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    say("cli", case=label, seconds=f"{seconds:.3f}",
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    check(rc == 0, f"CLI {label}: exit code {rc}")
+    return counts
+
+
+def cli_records(results: str, code, weight: int, p_err: float) -> list:
+    """The records of one sweep point's result file, which must carry the
+    name ``format_result_filename`` gives."""
+    path = os.path.join(results, format_result_filename(str(code), weight,
+                                                        MAX_ITERS, p_err))
+    check(os.path.exists(path), f"CLI: no result file {path}")
+    with open(path) as f:
+        records = parse_reference_text(f.read())
+    check(len(records) > 0, f"CLI: {path} holds no record")
+    return records
+
+
+def record_counters(record: dict) -> np.ndarray:
+    counters = np.zeros(NUM_COUNTERS, dtype=np.int64)
+    for i, name in RECORD_FIELDS.items():
+        counters[i] = int(record[name])
+    return counters
+
+
+def say_point(label: str, weight: int, p_err: float, record: dict,
+              smi: str) -> np.ndarray:
+    tested = int(record["Errors Tested"])
+    seconds = int(record["Duration(micro-s)"]) * 1e-6
+    say("cli", case=label, W=weight, p=p_err, samples=tested,
+        samples_per_s=f"{tested / seconds:.1f}",
+        corrected_fraction=f"{int(record['Corrected']) / tested:.6f}",
+        card=json.dumps(smi))
+    return record_counters(record)
+
+
+def journal_of(results: str) -> list:
+    with open(os.path.join(results, "journal.jsonl")) as f:
+        return f.read().splitlines()
+
+
+def cli_phase(smi: str) -> dict:
+    """Phase 22: the experiment CLI on the card.  Returns each case's
+    launch counts."""
+    phase("22 CLI")
+    code610 = construct_code(*HEADLINE_CODE)
+    gross_code = known_bicycle_code(GROSS)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="qec-cli-") as tmp:
+        # (a) the headline sweep, W = 14..16, through K1; then the same call
+        res = f"{tmp}/headline"
+        w_lo, w_hi = CLI_HEADLINE_WEIGHTS
+        argv = ["--code", HEADLINE_SPEC, "--w", str(w_lo), "--W", str(w_hi),
+                "--count", str(CHUNKS * BATCH), "--max", str(MAX_ITERS),
+                "--p", str(P_ERR), "--seed", "1", "--batch_size", str(BATCH),
+                f"--results_dir={res}", f"--log_file={tmp}/headline.txt"]
+        label = f"headline sweep W={w_lo}..{w_hi}"
+        out[label] = counts = cli_call(label, argv)
+        check(counts["bp_sum_product"] > 0, f"CLI {label}: K1 not launched")
+        lines = journal_of(res)
+        run_ids = {json.loads(line)["run_id"] for line in lines}
+        say("cli", case=label, journal_lines=len(lines),
+            run_ids=json.dumps(sorted(run_ids)))
+        check(all(r.endswith(f"|wcap={w_hi}|torch=cuda") for r in run_ids),
+              f"CLI {label}: run_ids {run_ids}")
+        first = {}
+        for w in range(w_lo, w_hi + 1):
+            (rec,) = cli_records(res, code610, w, P_ERR)
+            first[w] = rec
+            counters = say_point(label, w, P_ERR, rec, smi)
+            if w == WEIGHT:
+                gate_headline(f"CLI W={w}", counters, two_sided=True)
+        again = cli_call(label + " again", argv)
+        check(journal_of(res) == lines,
+              f"CLI {label}: the second call appended to the journal")
+        check(not any(again.values()),
+              f"CLI {label}: the second call launched {again}")
+        for w in range(w_lo, w_hi + 1):
+            recs = cli_records(res, code610, w, P_ERR)
+            same = {k: v for k, v in recs[-1].items() if k != "Duration(micro-s)"}
+            want = {k: v for k, v in first[w].items() if k != "Duration(micro-s)"}
+            check(len(recs) == 2 and same == want,
+                  f"CLI {label}: the resumed W={w} record differs")
+
+        # (b) the quality mode through K2 and K7
+        res = f"{tmp}/osd"
+        label = f"min-sum + OSD-{OSD_LAM} W={OSD_WEIGHT}"
+        out[label] = counts = cli_call(label, [
+            "--code", HEADLINE_SPEC, "--algorithm", "min-sum",
+            "--osd", str(OSD_LAM), "--w", str(OSD_WEIGHT), "--p", str(OSD_P),
+            "--batch_size", str(OSD_BATCH),
+            "--count", str(OSD_CHUNKS * OSD_BATCH), "--max", str(MAX_ITERS),
+            "--seed", "8", f"--results_dir={res}", f"--log_file={tmp}/osd.txt"])
+        check(counts["min_sum"] > 0 and counts["osd0"] > 0,
+              f"CLI {label}: launches {counts}")
+        (rec,) = cli_records(res, code610, OSD_WEIGHT, OSD_P)
+        counters = say_point(label, OSD_WEIGHT, OSD_P, rec, smi)
+        check(counters[C_SYN_X] == counters[C_SYN_Z] == 0,
+              f"CLI {label}: OSD left syndrome failures")
+        gate_counts(f"CLI {label}", "corrected", int(counters[C_CORRECTED]),
+                    int(counters[C_TESTED]), OSD_CORRECTED)
+
+        # (c) the gross code through K6
+        res = f"{tmp}/gross"
+        label = f"sum-product gross p={GROSS_P}"
+        out[label] = counts = cli_call(label, [
+            "--code", f"bb:{GROSS}", "--error_model", "depolarizing",
+            "--p_values", str(GROSS_P), "--count", str(GROSS_CLI_SAMPLES),
+            "--batch_size", str(BATCH), "--max", str(MAX_ITERS), "--seed", "5",
+            f"--results_dir={res}", f"--log_file={tmp}/gross.txt"])
+        check(counts["lifted_bp"] > 0, f"CLI {label}: K6 not launched")
+        (rec,) = cli_records(res, gross_code, 1, GROSS_P)
+        gate_two_proportion(f"CLI {label}",
+                            say_point(label, 1, GROSS_P, rec, smi),
+                            GROSS_SUM_PRODUCT_CORRECTED)
+
+        # (d) a traced run; the profiler may miss a session's kernels (see
+        # device_ms), so up to three runs, each in a fresh directory
+        label = f"traced headline W={WEIGHT}"
+        found = False
+        for attempt in range(3):
+            prof = f"{tmp}/trace{attempt}"
+            out[label] = cli_call(label, [
+                "--code", HEADLINE_SPEC, "--w", str(WEIGHT),
+                "--count", str(CLI_TRACE_SAMPLES), "--max", str(MAX_ITERS),
+                "--p", str(P_ERR), "--seed", "2", "--batch_size", str(BATCH),
+                "--profile_dir", prof, f"--results_dir={tmp}/traced{attempt}",
+                f"--log_file={tmp}/traced.txt"])
+            traces = [f for f in os.listdir(prof)
+                      if f.endswith(".pt.trace.json")] if os.path.isdir(prof) else []
+            for name in traces:
+                with open(os.path.join(prof, name)) as f:
+                    found |= "bp_sum_product_kernel" in f.read()
+            say("cli", case=label, attempt=attempt, trace_files=len(traces),
+                names_k1=found)
+            if found:
+                break
+        check(found, f"CLI {label}: no trace names bp_sum_product_kernel")
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     # 1. device -------------------------------------------------------------
@@ -1981,6 +2163,7 @@ def main() -> int:
     phase("19 K8 time")
     k8_times = time_k8(device, g5210, llr)
     launches["sharded_min_sum_step"] = mesh_phases()
+    cli_phase(smi)
     phase(None)
     check("jax" not in sys.modules, "the port imported jax")
 

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from qec_ldpc_tpu_torch.codes import QuantumLDPCCode
+from qec_ldpc_tpu_torch.decoder import layered, min_sum, sum_product
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
 from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
 from qec_ldpc_tpu_torch.decoder.min_sum import (
@@ -165,10 +166,12 @@ def lane_sort(syndrome: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _decode_one_graph(graph: CirculantGraph | LiftedGraph,
-                      syndrome: torch.Tensor, prior: np.float32, cfg: BPConfig):
+                      syndrome: torch.Tensor, prior: np.float32, cfg: BPConfig,
+                      plain: bool = False):
     """One graph: ``(decisions, conv_fail, syn_fail, lane_iters, soft)``,
     with ``lane_iters`` (batch,) each lane's executed iterations and
-    ``soft`` None unless ``cfg.return_soft``.
+    ``soft`` None unless ``cfg.return_soft``.  ``plain``: run the plain
+    PyTorch loop on any device, every lane counting the loop's iterations.
 
     With ``cfg.kernel_sort_lanes`` the kernel decodes the lanes in
     :func:`lane_sort` order and its outputs go back to the original order
@@ -184,18 +187,22 @@ def _decode_one_graph(graph: CirculantGraph | LiftedGraph,
     if cfg.kernel_sort_lanes:
         perm, inv = lane_sort(syndrome)
         syn_k = syndrome[:, perm].contiguous()
+    # the kernel wrappers and the plain loops take the same arguments
     if cfg.algorithm == "layered-min-sum":
-        out, lane_iters = layered_cuda.layered_run(
-            graph, syn_k, prior_llr(prior), cfg.max_iters,
-            cfg.layered_check_every, cfg.min_sum_alpha)
+        run = layered.layered_min_sum_run if plain else layered_cuda.layered_run
+        args = (prior_llr(prior), cfg.max_iters, cfg.layered_check_every,
+                cfg.min_sum_alpha)
     elif cfg.algorithm == "min-sum":
-        out, lane_iters = min_sum_cuda.min_sum_run(
-            graph, syn_k, prior_llr(prior), cfg.max_iters, cfg.check_every,
-            cfg.conv_low, cfg.min_sum_alpha)
+        run = min_sum.min_sum_run if plain else min_sum_cuda.min_sum_run
+        args = (prior_llr(prior), cfg.max_iters, cfg.check_every,
+                cfg.conv_low, cfg.min_sum_alpha)
     else:
-        out, lane_iters = bp_cuda.bp_run(
-            graph, syn_k, prior, cfg.max_iters, cfg.check_every,
-            cfg.conv_low, cfg.conv_high)
+        run = sum_product.bp_run if plain else bp_cuda.bp_run
+        args = (prior, cfg.max_iters, cfg.check_every, cfg.conv_low,
+                cfg.conv_high)
+    out, lane_iters = run(graph, syn_k, *args)
+    if plain:
+        lane_iters = lane_iters.expand(syn_k.shape[1])
     if inv is not None:
         out, lane_iters = out[:, inv], lane_iters[inv]
     if cfg.algorithm == "layered-min-sum":
@@ -216,6 +223,8 @@ def decode_batch(
     syndrome_z: torch.Tensor,  # (K*P, batch)
     error_probability: float,
     cfg: BPConfig = BPConfig(),
+    *,
+    plain: bool = False,
 ) -> DecodeResult:
     """Decode both graphs with ``cfg.algorithm`` (one of ``ALGORITHMS``).
 
@@ -223,7 +232,9 @@ def decode_batch(
     each lane's own count, for sum-product (K1, K6 on a lifted graph),
     min-sum (K2/K4, K5) and layered min-sum (K3) alike (JAX's Pallas
     kernels count per 128-lane tile); iterations x batch on the plain path,
-    as in JAX."""
+    as in JAX.  ``plain``: run the plain PyTorch version on CUDA tensors too
+    (decoder/validate.py's engine: a CUDA kernel cannot be instrumented);
+    on CPU tensors it always runs."""
     if cfg.algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}; expected one "
                          f"of {ALGORITHMS}")
@@ -236,7 +247,7 @@ def decode_batch(
     for graph, syndrome in ((graphs.x, syndrome_x), (graphs.z, syndrome_z)):
         syndrome = syndrome.to(torch.int32).contiguous()
         *flags, lane_iters, soft = _decode_one_graph(graph, syndrome, prior,
-                                                     cfg)
+                                                     cfg, plain)
         out.append((*flags, lane_iters.max(), lane_iters.sum(), soft))
     (dx, cfx, sfx, itx, isx, softx), (dz, cfz, sfz, itz, isz, softz) = out
     return DecodeResult(decisions_x=dx, decisions_z=dz,

@@ -24,12 +24,17 @@ counters and lane-iterations are summed over the data axis once per group,
 and every rank returns the same totals.
 
 :func:`run_monte_carlo_osd` is the quality mode (the port of JAX's
-function of that name, single device): the same samples, then OSD
-(decoder/osd.py) on the lanes BP and relay leave failed:
+function of that name, on one device or a data-only mesh): the same
+samples, then OSD (decoder/osd.py) on the lanes BP and relay leave failed:
 
   sample -> syndromes -> decode with soft outputs [-> relay] -> classify
   the other lanes and move the failed ones to the front -> OSD on the
   failed lanes -> splice the corrections -> classify the failed lanes.
+
+On a data mesh each rank draws the chunk's full batch from the one
+generator of (seed, chunk) and decodes its own columns, as JAX does, so the
+samples are those of the single-device run.  Not ported yet: the
+graph-sharded quality chunks (ROADMAP queue 1 item 12c).
 
 Not ported (TPU-only, invisible in the results): the power-of-two rounding
 of the failed-lane fetch (``_gather_failed_lanes``), which bounded the
@@ -62,6 +67,7 @@ from qec_ldpc_tpu_torch.sampling.classify import (
 from qec_ldpc_tpu_torch.sampling.errors import (
     sample_depolarizing_errors,
     sample_weight_w_errors,
+    sample_weight_w_errors_dynamic,
 )
 
 
@@ -98,43 +104,58 @@ def relay_generator(seed: int, chunk: int, device: torch.device | str,
 def _resolve_logical_test(graphs: CodeGraphs, i_minus_p, device):
     """None -> rank-basis test of the code (the reference convention for
     QC-CSS codes, the physical one for bivariate bicycle and
-    hypergraph-product codes); a dense matrix goes to ``device``; a
-    RankBasisTest passes through."""
+    hypergraph-product codes); a dense matrix (array or tensor) goes to
+    ``device``; a RankBasisTest passes through."""
     if i_minus_p is None:
         return make_rank_basis_test(graphs.code, device)
     if isinstance(i_minus_p, RankBasisTest):
         return i_minus_p
+    if isinstance(i_minus_p, torch.Tensor):
+        return i_minus_p.to(device)
     return torch.as_tensor(np.asarray(i_minus_p), device=device)
 
 
 def sample_syndromes(graphs: CodeGraphs, generator: torch.Generator,
                      weight: int, error_probability: float, batch: int,
-                     error_model: str):
+                     error_model: str, weight_cap: int | None = None,
+                     lanes: slice | None = None):
     """Sample errors -> syndromes.  Returns (xe, ze, sx, sz), errors as
-    int32."""
+    int32.  ``weight_cap``: draw weight-model errors with the dynamic
+    sampler (``weight_cap`` candidates, the first ``weight`` active).
+    ``lanes``: keep only these lanes of the ``batch`` drawn (a data shard's
+    columns of the full-batch draw)."""
     n = graphs.code.n
     if error_model == "weight":
-        xe, ze = sample_weight_w_errors(generator, n, weight, batch)
+        if weight_cap is not None:
+            xe, ze = sample_weight_w_errors_dynamic(generator, n, weight,
+                                                    weight_cap, batch)
+        else:
+            xe, ze = sample_weight_w_errors(generator, n, weight, batch)
     elif error_model == "depolarizing":
         xe, ze = sample_depolarizing_errors(generator, n, error_probability,
                                             batch)
     else:
         raise ValueError(f"unknown error model {error_model!r}")
-    xe_i = xe.to(torch.int32)
-    ze_i = ze.to(torch.int32)
+    if lanes is not None:
+        xe, ze = xe[:, lanes], ze[:, lanes]
+    xe_i = xe.to(torch.int32).contiguous()
+    ze_i = ze.to(torch.int32).contiguous()
     return xe_i, ze_i, graphs.x.syndrome(xe_i), graphs.z.syndrome(ze_i)
 
 
 def _sample_and_decode(graphs: CodeGraphs, generator: torch.Generator,
                        weight: int, error_probability: float, cfg: BPConfig,
                        batch: int, error_model: str, relay_retries: int = 0,
-                       relay_gen: torch.Generator | None = None):
+                       relay_gen: torch.Generator | None = None,
+                       weight_cap: int | None = None,
+                       lanes: slice | None = None):
     """Sample errors -> syndromes -> decode (relay-repaired when
     ``relay_retries > 0``, drawing its gammas from ``relay_gen``).  Returns
-    (xe, ze, sx, sz, res) with errors as int32."""
+    (xe, ze, sx, sz, res) with errors as int32; ``weight_cap`` and
+    ``lanes`` as in :func:`sample_syndromes`."""
     xe_i, ze_i, sx, sz = sample_syndromes(graphs, generator, weight,
                                           error_probability, batch,
-                                          error_model)
+                                          error_model, weight_cap, lanes)
     if relay_retries > 0:
         res, _, _ = relay_decode_batch(graphs, sx, sz, error_probability,
                                        relay_gen, cfg, retries=relay_retries)
@@ -146,13 +167,14 @@ def _sample_and_decode(graphs: CodeGraphs, generator: torch.Generator,
 def _chunk_body(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
                 weight: int, error_probability: float, cfg: BPConfig,
                 batch: int, error_model: str, relay_retries: int = 0,
-                relay_gen: torch.Generator | None = None):
+                relay_gen: torch.Generator | None = None,
+                weight_cap: int | None = None):
     """Sample + decode + classify one batch.  Returns device tensors
     (counters[NUM_COUNTERS] int32, iters[2]) with iters the executed BP
     lane-iterations for [X, Z], relay retries included."""
     xe_i, ze_i, _, _, res = _sample_and_decode(
         graphs, generator, weight, error_probability, cfg, batch, error_model,
-        relay_retries, relay_gen)
+        relay_retries, relay_gen, weight_cap)
     counters = classify_batch(i_minus_p, xe_i, ze_i,
                               res.decisions_x.to(torch.int32),
                               res.decisions_z.to(torch.int32),
@@ -193,7 +215,8 @@ def effective_steps_per_call(count: int, batch_size: int,
 def _chunk_group(graphs: CodeGraphs, i_minus_p, chunk_ids, seed: int,
                  shard: tuple[int, ...], weight: int, error_probability: float,
                  cfg: BPConfig, batch: int, error_model: str,
-                 relay_retries: int, device: torch.device):
+                 relay_retries: int, device: torch.device,
+                 weight_cap: int | None = None):
     """The chunks ``chunk_ids`` of one rank (mesh indices ``shard``, empty
     without a mesh), summed on the device: (counters int64, iters[2]
     int64)."""
@@ -205,7 +228,7 @@ def _chunk_group(graphs: CodeGraphs, i_minus_p, chunk_ids, seed: int,
                                weight, error_probability, cfg, batch,
                                error_model, relay_retries,
                                relay_generator(seed, c, device, *shard)
-                               if relay_retries > 0 else None)
+                               if relay_retries > 0 else None, weight_cap)
         counters += cnt
         iters += its
     return counters, iters
@@ -221,19 +244,21 @@ def reduce_over_data(mesh: Mesh, counters: torch.Tensor, iters: torch.Tensor):
 
 def make_sharded_chunk(mesh: Mesh, graphs: CodeGraphs, weight: int,
                        cfg: BPConfig, batch_per_device: int,
-                       error_model: str = "weight", relay_retries: int = 0):
+                       error_model: str = "weight", relay_retries: int = 0,
+                       weight_cap: int | None = None):
     """The data-parallel chunk group of this rank: the returned
     ``chunk_fn(i_minus_p, seed, error_probability, chunk_ids, *, device)``
     decodes ``batch_per_device`` lanes of each chunk from the generators of
     (seed, chunk, data index) and returns the group's (counters, iters[2])
-    summed over the data axis, the same on every rank."""
+    summed over the data axis, the same on every rank.  ``weight_cap`` as
+    in :func:`run_monte_carlo`."""
     didx = mesh.rank(DATA_AXIS)
 
     def chunk_fn(i_minus_p, seed, error_probability, chunk_ids, *, device):
         return reduce_over_data(mesh, *_chunk_group(
             graphs, i_minus_p, chunk_ids, seed, (didx,), weight,
             error_probability, cfg, batch_per_device, error_model,
-            relay_retries, torch.device(device)))
+            relay_retries, torch.device(device), weight_cap))
 
     return chunk_fn
 
@@ -276,18 +301,23 @@ def run_monte_carlo(
     axis is > 1 (circulant codes).  The group's counters are summed over
     the data axis (one all_reduce) and every rank returns the totals.
 
+    ``weight_cap`` (weight model; single device and data-only meshes): draw
+    each sample's errors with the dynamic sampler, ``weight_cap`` candidate
+    draws of which the first ``weight`` count, so every weight of a sweep
+    draws from the same stream (the JAX package's rule, which the CLI's
+    journal follows).  At ``weight == weight_cap`` the draws equal the
+    static sampler's.  The graph-sharded path ignores it, as JAX's does.
+
     Returns (counters[NUM_COUNTERS] int64 numpy, total_bp_lane_iterations).
     """
-    if weight_cap is not None:
-        raise NotImplementedError("the dynamic-weight sampler is not ported "
-                                  "yet (ROADMAP queue 1 item 11)")
     device = torch.device(device)
     i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
     if mesh is None:
         def run_group(ids):
             return _chunk_group(graphs, i_minus_p, ids, seed, (), weight,
                                 error_probability, cfg, batch_size,
-                                error_model, relay_retries, device)
+                                error_model, relay_retries, device,
+                                weight_cap)
     else:
         if not isinstance(mesh, Mesh):
             raise ValueError(f"mesh must be a parallel.mesh.Mesh, got "
@@ -303,7 +333,8 @@ def run_monte_carlo(
                                                 relay_retries)
         else:
             chunk_fn = make_sharded_chunk(mesh, graphs, weight, cfg, per_dev,
-                                          error_model, relay_retries)
+                                          error_model, relay_retries,
+                                          weight_cap)
 
         def run_group(ids):
             return chunk_fn(i_minus_p, seed, error_probability, ids,
@@ -374,14 +405,15 @@ def _classify_and_compact(i_minus_p, xe, ze, sx, sz, res):
 def _osd_chunk(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
                weight: int, error_probability: float, cfg: BPConfig,
                batch: int, error_model: str, relay_retries: int,
-               relay_gen: torch.Generator | None):
+               relay_gen: torch.Generator | None, lanes: slice | None = None):
     """The device half of one quality-mode chunk: sample, decode (with soft
-    outputs), classify the non-failed lanes, compact.  Returns
+    outputs), classify the non-failed lanes, compact.  ``lanes``: decode
+    only these lanes of the ``batch`` drawn (a data shard's).  Returns
     ``(counters_ok, iters[2], counts fetch, bundle)``; the failed-lane
     counts are already on their way to the host."""
     xe, ze, sx, sz, res = _sample_and_decode(
         graphs, generator, weight, error_probability, cfg, batch, error_model,
-        relay_retries, relay_gen)
+        relay_retries, relay_gen, lanes=lanes)
     counters, counts, bundle = _classify_and_compact(i_minus_p, xe, ze, sx,
                                                      sz, res)
     iters = torch.stack([res.iter_samples_x, res.iter_samples_z])
@@ -435,7 +467,7 @@ def run_monte_carlo_osd(
     init_counters: np.ndarray | None = None,
     *,
     device: torch.device | str,
-    mesh=None,
+    mesh: Mesh | None = None,
 ):
     """Monte-Carlo statistics with repair of BP failures (the quality mode)
     on ``device``.
@@ -458,15 +490,47 @@ def run_monte_carlo_osd(
     called per chunk; ``start_chunk`` / ``init_counters`` resume from
     post-repair counters at a chunk boundary.
 
+    ``mesh`` (a data-only mesh, parallel/mesh.py; ``device`` is the rank's):
+    as in JAX, every data rank draws the chunk's FULL batch from the one
+    generator of (seed, chunk) and decodes, classifies and repairs its own
+    ``batch_size // num_data`` columns; the chunk's counters and
+    lane-iterations are summed over the data axis (one all_reduce per
+    chunk) and every rank returns the totals.  Lanes decode independently,
+    so for min-sum and layered min-sum the counters equal the ``mesh=None``
+    run's.  Relay retries draw their gammas from the generator of (seed,
+    chunk, RELAY_STREAM, data index), so with relay the counters agree with
+    ``mesh=None``'s only statistically.  Several processes need a mesh (a
+    port mesh spans every rank), or each would count every failure.
+
     Returns (counters[NUM_COUNTERS] int64 numpy, total_bp_lane_iterations).
     """
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_available()
+             and torch.distributed.is_initialized() else 1)
+    shard, lanes = (), None
     if mesh is not None:
-        raise NotImplementedError("mesh runs of the quality mode are not "
-                                  "ported yet (ROADMAP queue 1 item 12c)")
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError("multi-process quality runs are not ported "
-                                  "yet (ROADMAP queue 1 item 12c)")
+        if not isinstance(mesh, Mesh):
+            raise ValueError(f"mesh must be a parallel.mesh.Mesh, got "
+                             f"{type(mesh).__name__}")
+        if mesh.size(GRAPH_AXIS) > 1:
+            raise NotImplementedError(
+                "graph-sharded quality chunks are not ported yet (ROADMAP "
+                "queue 1 item 12c); use a data-only mesh")
+        num_data = mesh.size(DATA_AXIS)
+        if batch_size % num_data:
+            raise ValueError(f"batch_size={batch_size} must be divisible by "
+                             f"the data-axis size {num_data}")
+        bpd = batch_size // num_data
+        didx = mesh.rank(DATA_AXIS)
+        shard, lanes = (didx,), slice(didx * bpd, (didx + 1) * bpd)
+    if world > 1 and mesh is None:
+        # the counters are summed over the mesh's data axis (a port mesh
+        # spans every rank): without one each process would decode the full
+        # batch and count each failure once per process
+        raise ValueError(
+            "run_monte_carlo_osd with several processes requires a mesh "
+            "spanning all of them (mesh=None would decode the full batch in "
+            "every process and count each failure once per process)")
     device = torch.device(device)
     post = None
     if lam >= 0:
@@ -483,13 +547,16 @@ def run_monte_carlo_osd(
         return c, _osd_chunk(graphs, i_minus_p, chunk_generator(seed, c, device),
                              weight, error_probability, cfg, batch_size,
                              error_model, relay_retries,
-                             relay_generator(seed, c, device)
-                             if relay_retries > 0 else None)
+                             relay_generator(seed, c, device, *shard)
+                             if relay_retries > 0 else None, lanes)
 
     def tail(item):
         c, (counters_ok, iters, counts, bundle) = item
-        failed = _repair_and_classify(post, i_minus_p, counts.get(), bundle)
-        return c, _Fetch(torch.cat([(counters_ok + failed).to(torch.int64),
+        counters = counters_ok + _repair_and_classify(post, i_minus_p,
+                                                      counts.get(), bundle)
+        if mesh is not None:
+            counters, iters = reduce_over_data(mesh, counters, iters)
+        return c, _Fetch(torch.cat([counters.to(torch.int64),
                                     iters.to(torch.int64)]))
 
     def finish(item):

@@ -8,4 +8,5 @@ from qec_ldpc_tpu_torch.sampling.classify import (
 from qec_ldpc_tpu_torch.sampling.errors import (
     sample_depolarizing_errors,
     sample_weight_w_errors,
+    sample_weight_w_errors_dynamic,
 )

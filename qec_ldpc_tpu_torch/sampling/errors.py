@@ -13,15 +13,20 @@ from __future__ import annotations
 import torch
 
 
-def _accumulate_hits(idx: torch.Tensor, typ: torch.Tensor,
-                     n: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _accumulate_hits(idx: torch.Tensor, typ: torch.Tensor, n: int,
+                     active: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(x_errors, z_errors), each (n, batch) int8, from draws idx/typ
     (W, batch).  A scatter with ``amax`` ORs the bits of colliding draws, so
-    a later Z draw never clears an earlier X bit on the same qubit."""
+    a later Z draw never clears an earlier X bit on the same qubit.
+    ``active``: an optional (W,) bool mask of the draws that count (the
+    dynamic sampler); an inactive draw sets no bit."""
     batch = idx.shape[1]
     idx = idx.to(torch.int64)
 
     def hits(bit: torch.Tensor) -> torch.Tensor:
+        if active is not None:
+            bit = bit & active[:, None]
         out = torch.zeros((n, batch), dtype=torch.int32, device=idx.device)
         out.scatter_reduce_(0, idx, bit.to(torch.int32), reduce="amax")
         return out.to(torch.int8)
@@ -39,6 +44,25 @@ def sample_weight_w_errors(
     idx = torch.randint(0, n, (weight, batch), generator=generator, device=device)
     typ = torch.randint(0, 3, (weight, batch), generator=generator, device=device)
     return _accumulate_hits(idx, typ, n)
+
+
+def sample_weight_w_errors_dynamic(
+    generator: torch.Generator, n: int, weight: int, w_max: int, batch: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weight-``weight`` errors drawn as ``w_max`` candidates: ``w_max``
+    indices, then ``w_max`` types, of which the first ``weight`` are active.
+    The JAX package draws this way so that a whole weight sweep shares one
+    compiled program; the port compiles nothing, and keeps the sampler so
+    that a sweep draws the same stream as a journal written by it expects
+    (``run_monte_carlo(weight_cap=)``).  At ``weight == w_max`` the draws
+    equal :func:`sample_weight_w_errors`'s from the same generator state."""
+    if not 0 <= weight <= w_max:
+        raise ValueError(f"weight {weight} outside [0, w_max={w_max}]")
+    device = generator.device
+    idx = torch.randint(0, n, (w_max, batch), generator=generator, device=device)
+    typ = torch.randint(0, 3, (w_max, batch), generator=generator, device=device)
+    active = torch.arange(w_max, device=device) < weight
+    return _accumulate_hits(idx, typ, n, active)
 
 
 def sample_depolarizing_errors(

@@ -42,6 +42,9 @@ def test_import_leaves_jax_out():
             "from qec_ldpc_tpu_torch.parallel import run_monte_carlo_osd\n"
             "import qec_ldpc_tpu_torch.sampling, qec_ldpc_tpu_torch.parallel\n"
             "import qec_ldpc_tpu_torch.harness, qec_ldpc_tpu_torch.codes\n"
+            "import qec_ldpc_tpu_torch.harness.cli, qec_ldpc_tpu_torch.harness.config\n"
+            "import qec_ldpc_tpu_torch.harness.journal, qec_ldpc_tpu_torch.harness.debug\n"
+            "import qec_ldpc_tpu_torch.decoder.validate\n"
             "qec_ldpc_tpu_torch.codes.known_bicycle_code('[[144,12,12]]').build_graphs()\n"
             "qec_ldpc_tpu_torch.codes.toric_code(3).build_graphs()\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'qec_ldpc_tpu')\n"
@@ -76,6 +79,15 @@ def test_scan_covers_the_osd_modules():
             "qec_ldpc_tpu_torch/decoder/osd.py",
             "qec_ldpc_tpu_torch/decoder/osd_device.py",
             "qec_ldpc_tpu_torch/kernels/osd0_cuda.py"} <= names
+
+
+def test_scan_covers_the_cli_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"qec_ldpc_tpu_torch/harness/cli.py",
+            "qec_ldpc_tpu_torch/harness/config.py",
+            "qec_ldpc_tpu_torch/harness/journal.py",
+            "qec_ldpc_tpu_torch/harness/debug.py",
+            "qec_ldpc_tpu_torch/decoder/validate.py"} <= names
 
 
 def test_scan_covers_the_mesh_modules():

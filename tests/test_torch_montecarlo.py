@@ -204,7 +204,8 @@ def test_dense_logical_test_matches_rank_basis(g42):
     np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"weight_cap": 8},
+# weight_cap is ported; a cap below the weight is refused
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"weight_cap": 0},
                                     {"error_model": "sideways"}])
 def test_unported_run_options_raise(g42, kwargs):
     with pytest.raises((NotImplementedError, ValueError)):

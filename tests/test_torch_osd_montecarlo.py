@@ -22,6 +22,7 @@ from qec_ldpc_tpu_torch.convert import graphs_from_jax, rank_basis_test_from_num
 from qec_ldpc_tpu_torch.decoder import BPConfig, DecodeResult
 from qec_ldpc_tpu_torch.decoder.osd import CSSPostprocessor
 from qec_ldpc_tpu_torch.parallel import montecarlo
+from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, Mesh
 from qec_ldpc_tpu_torch.parallel.montecarlo import (
     run_monte_carlo,
     run_monte_carlo_osd,
@@ -214,7 +215,16 @@ def test_corrected_count_agrees_with_jax(jg42, g42):
     assert got[C_SYN_X] == got[C_SYN_Z] == 0 == want[C_SYN_X] == want[C_SYN_Z]
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}])
+def graph_mesh_shape() -> Mesh:
+    """A stand-in for a (data=1 x graph=2) mesh: the quality mode reads its
+    shape and refuses before any collective."""
+    mesh = Mesh.__new__(Mesh)
+    mesh.shape = {DATA_AXIS: 1, GRAPH_AXIS: 2}
+    return mesh
+
+
+# the data axis is ported; the graph-sharded quality chunks are not
+@pytest.mark.parametrize("kwargs", [{"mesh": graph_mesh_shape()}])
 def test_unported_options_raise(g42, kwargs):
     with pytest.raises(NotImplementedError, match="item 12"):
         run_monte_carlo_osd(g42, 1, 64, 0.02, BPConfig(), seed=1,

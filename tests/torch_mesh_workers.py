@@ -1,5 +1,6 @@
 """Rank functions of the port's mesh tests (``test_torch_mesh.py``,
-``test_torch_graph_sharded.py``, ``test_torch_mc_graph.py``).
+``test_torch_graph_sharded.py``, ``test_torch_mc_graph.py``,
+``test_torch_cli_mesh.py``).
 
 ``qec_ldpc_tpu_torch.parallel.mesh.spawn`` runs each in a fresh process per
 rank, which imports this module: it imports neither JAX nor the JAX
@@ -15,6 +16,8 @@ import torch
 from qec_ldpc_tpu_torch import construct_code
 from qec_ldpc_tpu_torch.codes import toric_code
 from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs
+from qec_ldpc_tpu_torch.harness import Journal, load_init_file
+from qec_ldpc_tpu_torch.harness.cli import run_sweep
 from qec_ldpc_tpu_torch.parallel.graph_sharded import make_graph_sharded_decoder
 from qec_ldpc_tpu_torch.parallel.mc_graph import make_graph_sharded_chunk
 from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, make_mesh
@@ -22,6 +25,7 @@ from qec_ldpc_tpu_torch.parallel.montecarlo import (
     effective_steps_per_call,
     make_sharded_chunk,
     run_monte_carlo,
+    run_monte_carlo_osd,
 )
 from qec_ldpc_tpu_torch.sampling import make_rank_basis_test
 
@@ -135,6 +139,45 @@ def mesh_cases(mesh, params: tuple, seed: int, p: float, spc_cases) -> dict:
     fn = make_sharded_chunk(mesh, graphs, 3, BPConfig(max_iters=100), 32)
     counters, iters = fn(test, seed, p, [4, 5], device="cpu")
     out["chunk"] = (counters.numpy(), iters.numpy())
+    return out
+
+
+def cli_cases(mesh, init_files: dict, osd_runs: list) -> dict:
+    """The CLI on every rank of the world: each init file of
+    ``init_files`` (name -> path; the ranks share its results directory)
+    is run twice, the second run resuming from rank 0's journal; then
+    ``run_monte_carlo_osd`` directly on the data mesh for each (algorithm,
+    weight, count, batch, lam) of ``osd_runs``, and once without a mesh and
+    once on a graph mesh, which must both refuse."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, path in init_files.items():
+        cfg = load_init_file(path)
+        runs = [[s.to_dict() for s in run_sweep(cfg)] for _ in range(2)]
+        out[name] = dict(runs=runs, run_ids=sorted(
+            {r["run_id"] for r in Journal(
+                f"{cfg.results_dir}/journal.jsonl").records()}))
+    graphs = CodeGraphs.build(construct_code(3, 3, 6, 7, 2, 3))
+    out["osd_direct"] = [run_monte_carlo_osd(
+        graphs, w, count, 0.02, BPConfig(max_iters=15, algorithm=alg),
+        seed=7, batch_size=batch, lam=lam, mesh=mesh, device="cpu")[0]
+        for alg, w, count, batch, lam in osd_runs]
+    try:
+        run_monte_carlo_osd(graphs, 4, 64, 0.02,
+                            BPConfig(max_iters=15, algorithm="min-sum"),
+                            seed=7, batch_size=32, device="cpu")
+        out["osd_no_mesh"] = None
+    except ValueError as e:
+        out["osd_no_mesh"] = str(e)
+    graph_mesh = make_mesh(1, 2, device_type="cpu")
+    try:
+        run_monte_carlo_osd(graphs, 4, 64, 0.02,
+                            BPConfig(max_iters=15, algorithm="min-sum"),
+                            seed=7, batch_size=32, mesh=graph_mesh,
+                            device="cpu")
+        out["graph_osd"] = None
+    except NotImplementedError as e:
+        out["graph_osd"] = str(e)
     return out
 
 
