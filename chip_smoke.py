@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives each decode path of the port through ``run_monte_carlo`` and the
-quality mode through ``run_monte_carlo_osd``, the entry points a user calls,
+Drives each decode path of the port through ``run_monte_carlo``, the
+quality mode through ``run_monte_carlo_osd`` and the headline benchmark
+through ``bench_torch.main``, the entry points a user calls,
 and holds every CUDA kernel of those paths against its plain PyTorch version
 on the card.  The headline workload is the
 reference's: the [[610,61]] code, weight-15 Pauli errors, p = 0.01, up to
@@ -174,9 +175,25 @@ exit) if any phase fails:
              4,096-sample headline run with ``--profile_dir``, whose trace
              must name ``bp_sum_product_kernel``; each point's samples/s is
              printed beside the card's name and power limit
+ 23. quality the osd cell (8 chunks of 16,384, min-sum + OSD-0) at
+             (data=2) over gloo, without and with 8 relay retries: the
+             counters equal the mesh=None run's exactly, K2 and K7
+             launching on every rank; samples/s of both, with and without
+             relay
+ 24. quality the osd cell at (data=2 x graph=2) over gloo, min-sum and
+             layered, cut to 1 chunk (GRAPH_QUALITY_CHUNKS; the code, W, p
+             and iteration limit kept): counters equal the mesh=None run's
+             exactly, K8 (min-sum) and K7 launching on every rank; chunk 0
+             of the graph-sharded arrays chunk (min-sum) through K8 and
+             through K8's plain version: samples, decisions, error codes
+             and soft outputs bit for bit the single-device decode's (K2)
+ 25. bench   ``bench_torch.main`` at 1/8 of bench.py's counts
+             (BENCH_COUNTS), each workload's gate at that count; K1, K2, K3
+             and K5 must launch
 
-Phases 20 and 21 share one card between their ranks, and gloo stages every
-collective through host memory: their times are not multi-card numbers.
+Phases 20, 21, 23 and 24 share one card between their ranks, and gloo
+stages every collective through host memory: their times are not
+multi-card numbers.
 
 A check passes with 0 mismatches: finite messages bit for bit, NaN masks,
 decisions, failure flags and each lane's iteration count.  The last four lines
@@ -190,6 +207,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -238,7 +256,8 @@ from qec_ldpc_tpu_torch.parallel.graph_sharded import ShardRouter
 from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, spawn
 from qec_ldpc_tpu_torch.parallel.montecarlo import (
     chunk_generator,
-    relay_generator,
+    mc_chunk_arrays,
+    relay_draws,
     run_monte_carlo,
     run_monte_carlo_osd,
 )
@@ -258,6 +277,7 @@ from qec_ldpc_tpu_torch.sampling.errors import (
     sample_weight_w_errors,
 )
 
+import bench_torch
 from workloads import (
     BATCH,
     CHUNKS,
@@ -382,6 +402,14 @@ PEAK_INT32_OPS = 132 * 64 * 1.98e9
 # [[5210,521]] state is in the CTA's global slab
 K8_SHAPES = ((2, False), (4, False), (4, True), (8, False), (16, False),
              (16, True))
+# phases 23 and 24: the osd cell on a mesh over gloo on the one card.  F3's
+# run keeps the cell's 8 chunks and adds relay retries; the graph-sharded
+# runs are cut to one chunk, since gloo stages every halo through the host
+QUALITY_MESH_RELAY = 8
+GRAPH_QUALITY_CHUNKS = 1
+# phase 25: bench_torch.main at 1/8 of bench.py's counts
+BENCH_COUNTS = dict(headline_chunks=64, fixed_chunks=8, small_chunks=32,
+                    gross_chunks=8)
 # K5's slab placements are held to plain at this batch in phase 10
 LIFTED_SLAB_BATCH = 128
 # the relay-shaped batches of phase 6 keep one lane in this many (the W=40
@@ -906,7 +934,7 @@ def check_repaired_lanes(graphs: CodeGraphs, sx, sz, p_err: float, seed: int,
     returns the number of repaired lanes."""
     primary = decode_batch(graphs, sx, sz, p_err, cfg)
     res, rx, rz = relay_decode_batch(graphs, sx, sz, p_err,
-                                     relay_generator(seed, 0, device), cfg,
+                                     relay_draws(seed, 0, device), cfg,
                                      retries=retries)
     repaired = 0
     for bit, graph, syn, dec in ((1, graphs.x, sx, res.decisions_x),
@@ -1400,22 +1428,30 @@ def mesh_runs(mesh, runs: list) -> dict:
     return out
 
 
-def run_world(label: str, num_data: int, num_graph: int, runs: list) -> list:
-    """Spawn a (num_data x num_graph) world on the card, run ``runs`` in
-    every rank, print each run's line, and check that all ranks agree on
-    the counters and, graph-sharded, that every rank audited its lanes'
-    syndromes and found no violation.  Returns the ranks' results."""
+def spawn_on_card(fn, num_data: int, num_graph: int, *args) -> list:
+    """``fn(mesh, *args)`` on every rank of a (num_data x num_graph) world
+    spawned on the one card; prints the world's line.  Returns the ranks'
+    results."""
     torch.cuda.empty_cache()
     # counting syncs in a rank also makes gloo's staging thread log each of
     # its own: keep the ranks' C++ log to errors
     os.environ["TORCH_CPP_LOG_LEVEL"] = "ERROR"
     t0 = time.perf_counter()
-    ranks = spawn(mesh_runs, num_data, num_graph, device_type="cuda",
-                  args=(runs,), timeout=900)
+    ranks = spawn(fn, num_data, num_graph, device_type="cuda", args=args,
+                  timeout=900)
     say("mesh", world=f"{num_data}x{num_graph}", ranks=len(ranks),
         backend=ranks[0]["backend"], device=ranks[0]["device"],
         seconds=f"{time.perf_counter() - t0:.2f}",
         note="ranks share one card; gloo stages collectives through the host")
+    return ranks
+
+
+def run_world(label: str, num_data: int, num_graph: int, runs: list) -> list:
+    """Spawn a (num_data x num_graph) world on the card, run ``runs`` in
+    every rank, print each run's line, and check that all ranks agree on
+    the counters and, graph-sharded, that every rank audited its lanes'
+    syndromes and found no violation.  Returns the ranks' results."""
+    ranks = spawn_on_card(mesh_runs, num_data, num_graph, runs)
     for run in runs:
         name = run[0]
         first = ranks[0][name]
@@ -1722,6 +1758,178 @@ def cli_phase(smi: str) -> dict:
                 break
         check(found, f"CLI {label}: no trace names bp_sum_product_kernel")
     return out
+
+
+# -- phases 23-25: the quality mode on a mesh, and the bench ----------------
+
+def quality_mesh_runs(mesh, runs: list, arrays_seed) -> dict:
+    """Rank function of phases 23 and 24 (run in each spawned rank): every
+    run (label, algorithm, chunks, relay retries, seed) of the osd cell
+    through ``run_monte_carlo_osd(mesh=)``, after a one-chunk warm-up, with
+    every launch count set to 0 just before it and read just after.  With
+    ``arrays_seed`` (a graph mesh), chunk 0 of
+    ``make_graph_sharded_arrays_chunk`` (min-sum) through K8 and then
+    through K8's plain version, each held bit for bit on the card to the
+    single-device decode of the same samples (K2): samples, decisions,
+    error codes and soft outputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = mesh.device
+    g610 = CodeGraphs.build(construct_code(*HEADLINE_CODE))
+    logical = make_rank_basis_test(g610.code, device)
+    out = {"rank": (mesh.rank(DATA_AXIS), mesh.rank(GRAPH_AXIS)),
+           "backend": mesh.backend, "device": str(device)}
+    # one chunk first: the timed runs do not pay the rank's first calls
+    run_monte_carlo_osd(g610, OSD_WEIGHT, OSD_BATCH, OSD_P,
+                        BPConfig(max_iters=MAX_ITERS, algorithm=runs[0][1]),
+                        seed=0, batch_size=OSD_BATCH, lam=OSD_LAM,
+                        i_minus_p=logical, device=device, mesh=mesh)
+    for label, algorithm, chunks, relay, seed in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        counters, lane_iters = run_monte_carlo_osd(
+            g610, OSD_WEIGHT, chunks * OSD_BATCH, OSD_P,
+            BPConfig(max_iters=MAX_ITERS, algorithm=algorithm), seed=seed,
+            batch_size=OSD_BATCH, lam=OSD_LAM, relay_retries=relay,
+            i_minus_p=logical, device=device, mesh=mesh)
+        torch.cuda.synchronize()
+        out[label] = dict(counters=counters, lane_iters=lane_iters,
+                          seconds=time.perf_counter() - t0,
+                          launches=read_counts())
+    if arrays_seed is not None:
+        cfg = BPConfig(max_iters=MAX_ITERS, algorithm="min-sum")
+        chunk = mc_graph.make_graph_sharded_arrays_chunk(
+            mesh, g610, OSD_WEIGHT, cfg, OSD_BATCH)
+        want = mc_chunk_arrays(g610, arrays_seed, 0, OSD_WEIGHT, OSD_P,
+                               dataclasses.replace(cfg, return_soft=True),
+                               OSD_BATCH, device=device)
+        step = sharded_step_cuda.sharded_min_sum_step
+        for route in ("K8", "plain"):
+            if route == "plain":
+                sharded_step_cuda.sharded_min_sum_step = (
+                    sharded_step_cuda.sharded_min_sum_step_plain)
+            try:
+                reset_counts()
+                got = chunk(arrays_seed, 0, OSD_P, device=device)
+                torch.cuda.synchronize()
+                k8 = sharded_step_cuda.launches
+            finally:
+                sharded_step_cuda.sharded_min_sum_step = step
+            mism = flag_mismatches(got[:4], want[:4]) + flag_mismatches(
+                (got[4].decisions_x, got[4].decisions_z, got[4].error_code),
+                (want[4].decisions_x, want[4].decisions_z, want[4].error_code))
+            nans = 0
+            for g, w in ((got[4].soft_x, want[4].soft_x),
+                         (got[4].soft_z, want[4].soft_z)):
+                m, _, n = bit_mismatches(g, w)
+                mism, nans = mism + m, nans + n
+            out[f"arrays {route}"] = dict(mismatches=mism, soft_nans=nans,
+                                          k8_launches=k8)
+    return out
+
+
+def quality_mesh_phases(device, g610: CodeGraphs, logical_610, smi: str) -> dict:
+    """Phases 23 and 24; returns each graph-sharded run's launch counts
+    (rank (0, 0))."""
+    # 23. F3 on the card: relay + OSD-0 at (data=2) equals mesh=None --------
+    phase("23 quality relay data=2")
+    seed = 8
+    runs = [(f"{name} W={OSD_WEIGHT}", "min-sum", OSD_CHUNKS, relay, seed)
+            for name, relay in (
+                (f"min-sum + OSD-{OSD_LAM}", 0),
+                (f"min-sum + relay{QUALITY_MESH_RELAY} + OSD-{OSD_LAM}",
+                 QUALITY_MESH_RELAY))]
+    osd_cfg = BPConfig(max_iters=MAX_ITERS, algorithm="min-sum")
+    single = {label: quality_run(label + " mesh=None", g610, OSD_WEIGHT,
+                                 OSD_P, osd_cfg, chunks, OSD_BATCH, seed,
+                                 OSD_LAM, logical_610, device,
+                                 relay_retries=relay)
+              for label, _, chunks, relay, _ in runs}
+    ranks = spawn_on_card(quality_mesh_runs, 2, 1, runs, None)
+    for label, _, chunks, relay, _ in runs:
+        want, seconds, counts, _, _ = single[label]
+        tested = chunks * OSD_BATCH
+        for r in ranks:
+            check(np.array_equal(r[label]["counters"], want),
+                  f"data=2 {label}: counters {r[label]['counters']} differ "
+                  f"from mesh=None's {want}")
+            got = r[label]["launches"]
+            check(got["osd0"] > 0 and got["min_sum"] >= 2 * chunks,
+                  f"data=2 {label}: launches {got}")
+        say("mesh", path=f"data=2 {label}", counters_equal_mesh_none=True,
+            samples=tested, nvidia_smi=json.dumps(smi),
+            samples_per_s=f"{tested / max(r[label]['seconds'] for r in ranks):.1f}",
+            mesh_none_samples_per_s=f"{tested / seconds:.1f}",
+            mesh_none_launches=json.dumps({k: v for k, v in counts.items() if v}),
+            launches=json.dumps([{k: v for k, v in r[label]["launches"].items()
+                                  if v} for r in ranks]))
+    relayed = runs[1][0]
+    check(single[relayed][2]["min_sum"] > 2 * OSD_CHUNKS,
+          f"{relayed}: no relay retry launched")
+
+    # 24. the graph-sharded quality mode: (data=2 x graph=2) ----------------
+    phase("24 quality data=2 x graph=2")
+    runs = [(f"{algorithm} + OSD-{OSD_LAM} W={OSD_WEIGHT}", algorithm,
+             GRAPH_QUALITY_CHUNKS, 0, seed)
+            for algorithm in ("min-sum", "layered-min-sum")]
+    single = {label: quality_run(label + " mesh=None", g610, OSD_WEIGHT,
+                                 OSD_P, BPConfig(max_iters=MAX_ITERS,
+                                                 algorithm=algorithm),
+                                 chunks, OSD_BATCH, seed, OSD_LAM,
+                                 logical_610, device)
+              for label, algorithm, chunks, _, _ in runs}
+    ranks = spawn_on_card(quality_mesh_runs, SHARDED_DATA, SHARDED_GRAPH, runs,
+                          seed)
+    for r in ranks:
+        for route, want_k8 in (("K8", True), ("plain", False)):
+            a = r[f"arrays {route}"]
+            say("check", kernel="sharded_min_sum_step", rank=json.dumps(r["rank"]),
+                path=f"graph-sharded arrays chunk via {route} vs single device",
+                mismatches=a["mismatches"], soft_nans=a["soft_nans"],
+                k8_launches=a["k8_launches"])
+            check(a["mismatches"] == 0 and (a["k8_launches"] > 0) == want_k8,
+                  f"rank {r['rank']} arrays via {route}: {a}")
+    out = {}
+    for label, algorithm, chunks, _, _ in runs:
+        want = single[label][0]
+        tested = chunks * OSD_BATCH
+        for r in ranks:
+            got = r[label]["launches"]
+            check(np.array_equal(r[label]["counters"], want),
+                  f"data=2 x graph=2 {label}: counters {r[label]['counters']} "
+                  f"differ from mesh=None's {want}")
+            check(got["osd0"] > 0 and got["min_sum"] == 0
+                  and (got["sharded_min_sum_step"] > 0) == (algorithm == "min-sum"),
+                  f"data=2 x graph=2 {label}: launches {got}")
+        out[label] = ranks[0][label]["launches"]
+        say("mesh", path=f"data=2 x graph=2 {label}", counters_equal_mesh_none=True,
+            samples=tested, chunks=f"{chunks} (cut from {OSD_CHUNKS})",
+            nvidia_smi=json.dumps(smi),
+            seconds=f"{max(r[label]['seconds'] for r in ranks):.2f}",
+            samples_per_s=f"{tested / max(r[label]['seconds'] for r in ranks):.1f}",
+            launches=json.dumps([{k: v for k, v in r[label]["launches"].items()
+                                  if v} for r in ranks]))
+    return out
+
+
+def bench_phase(device, smi: str) -> dict:
+    """Phase 25: ``bench_torch.main`` on the card at 1/8 of bench.py's
+    counts, each workload's gate at that count, with every launch count set
+    to 0 just before it and read just after."""
+    phase("25 bench")
+    reset_counts()
+    t0 = time.perf_counter()
+    result = bench_torch.main(device=str(device), **BENCH_COUNTS)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    say("bench", counts=json.dumps(BENCH_COUNTS), seconds=f"{seconds:.2f}",
+        nvidia_smi=json.dumps(smi),
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    for kernel in ("bp_sum_product", "min_sum", "layered_min_sum",
+                   "lifted_min_sum"):
+        check(counts[kernel] > 0, f"bench: {kernel} not launched ({counts})")
+    check(result["device_kind"] == torch.cuda.get_device_name(device),
+          f"bench device_kind {result['device_kind']}")
+    return counts
 
 
 def main() -> int:
@@ -2164,6 +2372,8 @@ def main() -> int:
     k8_times = time_k8(device, g5210, llr)
     launches["sharded_min_sum_step"] = mesh_phases()
     cli_phase(smi)
+    quality_mesh_phases(device, g610, logical_610, smi)
+    bench_phase(device, smi)
     phase(None)
     check("jax" not in sys.modules, "the port imported jax")
 

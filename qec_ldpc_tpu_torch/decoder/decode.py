@@ -139,20 +139,25 @@ def _edge_sum(vv: torch.Tensor) -> torch.Tensor:
     return total
 
 
-def soft_output(graph: CirculantGraph | LiftedGraph, v: torch.Tensor,
-                cfg: BPConfig) -> torch.Tensor:
-    """Per-variable soft output from final messages ``v`` of
-    ``cfg.algorithm`` ("min-sum": LLRs, "sum-product": probabilities): the
-    sum of the edge LLRs, an affine image of the posterior LLR within a lane
-    (each edge is the prior plus a leave-one-out sum), so it ranks the
-    variables as the posterior does."""
-    vv = graph.vn_view(graph.to_var(v))  # (rank, num_vars, batch)
+def edge_soft(vv: torch.Tensor, cfg: BPConfig) -> torch.Tensor:
+    """(rank, ..., batch) var-side messages of ``cfg.algorithm`` ("min-sum":
+    LLRs, "sum-product": probabilities) -> (..., batch) soft outputs: the
+    sum of the edge LLRs over the incidence rank, left to right."""
     if cfg.algorithm == "min-sum":
         return _edge_sum(vv)
     # a NaN edge (0/0 on a saturated lane) carries no information: 0 LLR
     vc = vv.clamp(1e-12, 1.0 - 1e-7)
     term = torch.log1p(-vc) - torch.log(vc)
     return _edge_sum(torch.where(vv.isnan(), 0.0, term))
+
+
+def soft_output(graph: CirculantGraph | LiftedGraph, v: torch.Tensor,
+                cfg: BPConfig) -> torch.Tensor:
+    """Per-variable soft output from final messages ``v`` of
+    ``cfg.algorithm``: the sum of the edge LLRs, an affine image of the
+    posterior LLR within a lane (each edge is the prior plus a leave-one-out
+    sum), so it ranks the variables as the posterior does."""
+    return edge_soft(graph.vn_view(graph.to_var(v)), cfg)
 
 
 def lane_sort(syndrome: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

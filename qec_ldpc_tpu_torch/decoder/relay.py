@@ -17,8 +17,14 @@ check and cost one check window.  The JAX version loops under
 ``lax.while_loop`` until every lane is solved or the retries run out; here
 that condition is read on the host, so each retry costs one device-to-host
 read (``bool(solved.all())``), the port's image of the loop's ``cond``.
-Gammas come from an explicit ``torch.Generator``, so they cannot match JAX's
-keys: relay is held exactly on shared gammas and statistically end to end.
+
+The gammas come from :class:`RelayDraws`: retry r of graph k draws from its
+own generator, seeded from (the caller's entropy, k, r) alone, so no
+graph's draws depend on how many retries the other graph ran, and a decode
+of some columns of a wider batch (a data shard's) draws exactly the gammas
+the whole batch's decode gives those lanes (JAX's ``gamma_lanes`` and
+``lane_offset``).  Torch's streams cannot match JAX's keys: relay is held
+exactly on shared gammas and statistically end to end.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
 from qec_ldpc_tpu_torch.decoder.min_sum import prior_llr
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig
 from qec_ldpc_tpu_torch.kernels import min_sum_cuda
+from qec_ldpc_tpu_torch.sampling.errors import seeded_generator
 
 #: default damping-draw range gamma ~ U[GAMMA_LOW, GAMMA_HIGH), the JAX
 #: package's (tuned there on [[610,61]] W in {40, 50} and BB [[144,12,12]])
@@ -49,15 +56,36 @@ GAMMA_LOW = 0.05
 GAMMA_HIGH = 1.0
 
 
-def uniform_gammas(generator: torch.Generator, num_vars: int, batch: int,
-                   low: float, high: float) -> Callable[[int], torch.Tensor]:
-    """Retry r -> a fresh (num_vars, batch) float32 draw from U[low, high),
-    taken from ``generator`` on its device."""
-    def draw(r: int) -> torch.Tensor:
-        u = torch.rand((num_vars, batch), generator=generator,
-                       device=generator.device, dtype=torch.float32)
-        return u * (high - low) + low
-    return draw
+class RelayDraws:
+    """The damping draws of one relay decode.  Retry ``r`` of graph ``k``
+    (0 for X, 1 for Z) draws a (num_vars, ``width``) float32 uniform from
+    the generator of (``entropy``, k, r) on ``device`` and keeps the columns
+    ``offset`` .. ``offset + batch``; ``width`` None is the decode's own
+    batch."""
+
+    def __init__(self, entropy, device: torch.device | str,
+                 width: int | None = None, offset: int = 0):
+        self.entropy = [int(e) for e in entropy]
+        self.device = torch.device(device)
+        self.width, self.offset = width, offset
+
+    def gammas(self, k: int, num_vars: int, batch: int,
+               low: float = GAMMA_LOW, high: float = GAMMA_HIGH
+               ) -> Callable[[int], torch.Tensor]:
+        """Retry r -> graph ``k``'s (num_vars, batch) draw from U[low,
+        high)."""
+        width = batch if self.width is None else self.width
+        lo = self.offset
+        if lo < 0 or lo + batch > width:
+            raise ValueError(f"lanes {lo}..{lo + batch} lie outside the "
+                             f"{width} drawn")
+
+        def draw(r: int) -> torch.Tensor:
+            g = seeded_generator([*self.entropy, k, r], self.device)
+            u = torch.rand((num_vars, width), generator=g, device=self.device,
+                           dtype=torch.float32)
+            return u[:, lo:lo + batch] * (high - low) + low
+        return draw
 
 
 def _relay_one_graph(graph: CirculantGraph | LiftedGraph,
@@ -97,7 +125,7 @@ def relay_decode_batch(
     syndrome_x: torch.Tensor,
     syndrome_z: torch.Tensor,
     error_probability: float,
-    generator: torch.Generator,
+    draws: RelayDraws,
     cfg: BPConfig = BPConfig(),
     retries: int = 8,
     gamma_low: float = GAMMA_LOW,
@@ -110,19 +138,19 @@ def relay_decode_batch(
 
     SYNDROME_FAIL bits are cleared on repaired lanes; convergence-fail bits
     keep their meaning from the primary decode.  The retries' executed
-    lane-iterations are added to ``iter_samples_x/z``.  The X retries draw
-    their gammas from ``generator`` first, then the Z retries."""
+    lane-iterations are added to ``iter_samples_x/z``.  The gammas come
+    from ``draws``, graph 0 the X retries and graph 1 the Z retries."""
     res = decode_batch(graphs, syndrome_x, syndrome_z, error_probability, cfg)
     llr = prior_llr(np.float32(cfg.prior_factor) * np.float32(error_probability))
     ec = res.error_code
     out = {}
-    for name, bit, graph, syn, dec in (
-        ("x", SYNDROME_FAIL_X, graphs.x, syndrome_x, res.decisions_x),
-        ("z", SYNDROME_FAIL_Z, graphs.z, syndrome_z, res.decisions_z),
+    for k, name, bit, graph, syn, dec in (
+        (0, "x", SYNDROME_FAIL_X, graphs.x, syndrome_x, res.decisions_x),
+        (1, "z", SYNDROME_FAIL_Z, graphs.z, syndrome_z, res.decisions_z),
     ):
         syn = syn.to(torch.int32).contiguous()
-        gammas = uniform_gammas(generator, graph.num_vars, syn.shape[1],
-                                gamma_low, gamma_high)
+        gammas = draws.gammas(k, graph.num_vars, syn.shape[1], gamma_low,
+                              gamma_high)
         d, solved, used, extra = _relay_one_graph(
             graph, syn, llr, cfg, gammas, dec, (ec & bit) == 0, retries)
         ec = torch.where(solved, ec & ~bit, ec)

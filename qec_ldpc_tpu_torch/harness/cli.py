@@ -239,9 +239,15 @@ def run_sweep(cfg: RunConfig) -> list[CodeStatistics]:
             log.close()
 
 
+#: relay's draw rule, a generator per chunk, graph and retry
+#: (decoder/relay.py's RelayDraws): a tag the JAX run_id lacks
+RELAY_DRAWS_TAG = "|gammas=per-retry"
+
+
 def _run_id(cfg: RunConfig, code, p: float, seed: int, spc_eff: int,
             weight_cap: int | None, device_type: str) -> str:
-    """The journal key of one sweep point: the JAX package's run_id, then
+    """The journal key of one sweep point: the JAX package's run_id (with
+    :data:`RELAY_DRAWS_TAG` after the relay fields), then
     ``|torch=<device type>``.  It pins everything a resumed continuation
     depends on: the chunk grouping (batch_size and the effective
     steps_per_call: start_chunk counts groups), the draw streams and the
@@ -253,8 +259,11 @@ def _run_id(cfg: RunConfig, code, p: float, seed: int, spc_eff: int,
     if cfg.osd >= 0:
         run_id += f"|osd={cfg.osd}"
     if cfg.relay > 0:
-        # the gamma range shapes the retry streams
-        run_id += f"|relay={cfg.relay}|g={GAMMA_LOW:g}:{GAMMA_HIGH:g}"
+        # the gamma range shapes the retry streams, and so does their draw
+        # rule: never resume a journal of the earlier stream (one generator
+        # for the X, then the Z retries)
+        run_id += (f"|relay={cfg.relay}|g={GAMMA_LOW:g}:{GAMMA_HIGH:g}"
+                   + RELAY_DRAWS_TAG)
     if cfg.num_graph > 1:
         # graph-sharded sum-product reassociates (statistically, not
         # bit-equivalent)

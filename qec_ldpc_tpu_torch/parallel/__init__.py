@@ -3,7 +3,11 @@ multi-device engines: the (data, graph) mesh, data-parallel runs and the
 graph-sharded circulant engines."""
 
 from qec_ldpc_tpu_torch.parallel.graph_sharded import make_graph_sharded_decoder
-from qec_ldpc_tpu_torch.parallel.mc_graph import make_graph_sharded_chunk
+from qec_ldpc_tpu_torch.parallel.mc_graph import (
+    make_graph_sharded_arrays_chunk,
+    make_graph_sharded_chunk,
+    make_graph_sharded_osd_chunk,
+)
 from qec_ldpc_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     GRAPH_AXIS,
@@ -14,7 +18,10 @@ from qec_ldpc_tpu_torch.parallel.mesh import (
 )
 from qec_ldpc_tpu_torch.parallel.montecarlo import (
     effective_steps_per_call,
+    make_osd_chunk,
     make_sharded_chunk,
+    mc_chunk,
+    mc_chunk_arrays,
     run_monte_carlo,
     run_monte_carlo_osd,
 )

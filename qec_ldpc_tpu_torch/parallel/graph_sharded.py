@@ -38,11 +38,17 @@ queue 1 item 12b).
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import numpy as np
 import torch
 
-from qec_ldpc_tpu_torch.decoder.decode import ALGORITHMS, CodeGraphs, error_code
+from qec_ldpc_tpu_torch.decoder.decode import (
+    ALGORITHMS,
+    CodeGraphs,
+    edge_soft,
+    error_code,
+)
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
 from qec_ldpc_tpu_torch.decoder.min_sum import (
     _not_converged_mask_llr,
@@ -52,7 +58,6 @@ from qec_ldpc_tpu_torch.decoder.min_sum import (
     np_log_band,
     prior_llr,
 )
-from qec_ldpc_tpu_torch.decoder.relay import GAMMA_HIGH, GAMMA_LOW, uniform_gammas
 from qec_ldpc_tpu_torch.decoder.sum_product import (
     BPConfig,
     _not_converged_mask,
@@ -337,12 +342,16 @@ def _reencode_mismatch(mesh: Mesh, router: ShardRouter,
 
 def _decode_one_graph_sharded(mesh: Mesh, router: ShardRouter,
                               syndrome: torch.Tensor, prior: np.float32,
-                              cfg: BPConfig):
+                              cfg: BPConfig, want_soft: bool = False):
     """Local decisions and flags for one graph: ``(decisions (Lc*P, batch)
-    int8 var order, conv_fail (batch,), syn_fail (batch,), iterations)``."""
+    int8 var order, conv_fail (batch,), syn_fail (batch,), iterations,
+    soft)``.  ``soft`` is None unless ``want_soft``; then the local
+    variables' soft outputs (Lc*P, batch) by decoder/decode.py's
+    ``edge_soft``, block row 0 first (layered min-sum's posterior q):
+    min-sum's and layered min-sum's bit for bit the single-device ones."""
     B, P, Lc = router.B, router.P, router.Lc
     bt = syndrome.shape[-1]
-    conv_fail = None
+    conv_fail = soft = None
     if cfg.algorithm == "layered-min-sum":
         q, iters = _sharded_layered(mesh, router, syndrome, prior_llr(prior),
                                     cfg)
@@ -362,27 +371,30 @@ def _decode_one_graph_sharded(mesh: Mesh, router: ShardRouter,
         decisions = (vv >= cfg.hard_threshold).any(dim=1).reshape(Lc * P, bt)
         conv_fail = _graph_any(mesh, _not_converged_mask(v, cfg.conv_low,
                                                          cfg.conv_high))
+    if want_soft:
+        # layered's q is the posterior; the others sum their edge LLRs
+        soft = (q if cfg.algorithm == "layered-min-sum"
+                else edge_soft(vv.transpose(0, 1), cfg).reshape(Lc * P, bt))
     syn_fail = _reencode_mismatch(mesh, router, decisions, syndrome)
     if conv_fail is None:
         conv_fail = syn_fail
-    return decisions.to(torch.int8), conv_fail, syn_fail, iters
+    return decisions.to(torch.int8), conv_fail, syn_fail, iters, soft
 
 
 def _relay_one_graph_sharded(mesh: Mesh, router: ShardRouter,
                              syndrome: torch.Tensor, llr: float,
-                             cfg: BPConfig, generator: torch.Generator,
+                             cfg: BPConfig,
+                             gammas: Callable[[int], torch.Tensor],
                              decisions0: torch.Tensor, solved0: torch.Tensor,
-                             retries: int, gamma_low: float = GAMMA_LOW,
-                             gamma_high: float = GAMMA_HIGH):
-    """The graph-sharded relay retries (decoder/relay.py's rules): each rank
-    draws the damping of its own variables from ``generator``; a lane is
-    repaired when a retry's decision re-encodes to its syndrome.  Returns
-    ``(decisions, solved, iterations)``, the last the retries' executed
-    loop iterations.  ``solved`` is the same on every rank of the graph
-    group, so the group takes the same number of retries."""
+                             retries: int):
+    """The graph-sharded relay retries (decoder/relay.py's rules): retry r
+    damps the rank's own variables by ``gammas(r)`` (Lc*P, batch); a lane
+    is repaired when a retry's decision re-encodes to its syndrome.
+    Returns ``(decisions, solved, iterations)``, the last the retries'
+    executed loop iterations.  ``solved`` is the same on every rank of the
+    graph group, so the group takes the same number of retries."""
     Lc, P, B = router.Lc, router.P, router.B
     bt = syndrome.shape[-1]
-    gammas = uniform_gammas(generator, Lc * P, bt, gamma_low, gamma_high)
     decisions, solved = decisions0, solved0
     trip_iters, r = 0, 0
     while r < retries and not bool(solved.all()):
@@ -435,7 +447,7 @@ def make_graph_sharded_decoder(mesh: Mesh, graphs: CodeGraphs, cfg: BPConfig):
                                          prior, cfg)
                for router, syn in ((x_router, syndrome_x),
                                    (z_router, syndrome_z))]
-        (dx, cfx, sfx, itx), (dz, cfz, sfz, itz) = out
+        (dx, cfx, sfx, itx, _), (dz, cfz, sfz, itz, _) = out
         bt = dx.shape[-1]
         return (mesh.all_gather(dx, GRAPH_AXIS).reshape(-1, bt),
                 mesh.all_gather(dz, GRAPH_AXIS).reshape(-1, bt),

@@ -1,8 +1,8 @@
-"""Graph-parallel Monte-Carlo statistics: the (data x graph) mesh chunk
+"""Graph-parallel Monte-Carlo statistics: the (data x graph) mesh chunks
 (PyTorch).
 
-The port of ``qec_ldpc_tpu/parallel/mc_graph.py::make_graph_sharded_chunk``
-for circulant codes.  Per chunk, on every rank:
+The port of ``qec_ldpc_tpu/parallel/mc_graph.py`` for circulant codes.  Per
+chunk of :func:`make_graph_sharded_chunk`, on every rank:
 
   sample (data-local, the same on every rank of a graph group) -> full
   syndromes -> graph-sharded X/Z decode (the halo collectives ride the
@@ -16,9 +16,18 @@ layered min-sum) the counters equal a data-only mesh's of the same
 ``num_data`` bit for bit; sum-product reassociates the cross-shard products
 and agrees statistically.
 
-Not ported: the lane-sharded lifted engine (ROADMAP queue 1 item 12b) and
-the quality-mode chunks (``make_graph_sharded_arrays_chunk``,
-``make_graph_sharded_osd_chunk``; item 12c).
+The quality mode's chunks (:func:`make_graph_sharded_osd_chunk`, and
+:func:`make_graph_sharded_arrays_chunk`, which returns the per-lane arrays)
+draw instead the chunk's full batch from the generator of (seed, chunk), as
+the single-device quality mode does: every data rank slices its columns,
+decodes them graph-sharded with soft outputs, and gathers the decisions and
+soft outputs over ``graph`` into global variable order.  Min-sum and
+layered min-sum give the single-device decode's decisions and soft outputs
+bit for bit.  Relay keeps JAX's per-graph-shard draw: each
+rank damps its own variables from the generator of (seed, chunk, graph
+index), so relay counters are deterministic, not those of ``mesh=None``.
+
+Not ported: the lane-sharded lifted engine (ROADMAP queue 1 item 12b).
 """
 
 from __future__ import annotations
@@ -26,7 +35,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs, error_code
+from qec_ldpc_tpu_torch.decoder.decode import (
+    CodeGraphs,
+    DecodeResult,
+    error_code,
+)
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
 from qec_ldpc_tpu_torch.decoder.min_sum import prior_llr
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig
@@ -37,12 +50,56 @@ from qec_ldpc_tpu_torch.parallel.graph_sharded import (
 )
 from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, Mesh
 from qec_ldpc_tpu_torch.parallel.montecarlo import (
+    _classify_and_compact,
+    _Fetch,
     chunk_generator,
+    data_shard,
+    gather_lanes,
     reduce_over_data,
-    relay_generator,
+    relay_draws,
     sample_syndromes,
 )
 from qec_ldpc_tpu_torch.sampling.classify import NUM_COUNTERS, classify_batch
+
+
+def _reject_unsupported_pallas(graphs: CodeGraphs, cfg: BPConfig) -> None:
+    """``cfg.kernel='pallas'`` on the graph axis names the fused
+    between-halos step (K8), which serves circulant min-sum alone."""
+    if cfg.kernel == "pallas" and (cfg.algorithm != "min-sum"
+                                   or not isinstance(graphs.x, CirculantGraph)):
+        raise ValueError(
+            "cfg.kernel='pallas' with num_graph > 1 is only supported for "
+            "algorithm='min-sum' on circulant QC codes (the fused "
+            "between-halos kernel); use kernel='xla' for this combination")
+
+
+def _decode_chunk(mesh: Mesh, routers_xz, cfg: BPConfig, sx: torch.Tensor,
+                  sz: torch.Tensor, error_probability: float, draws,
+                  relay_retries: int, want_soft: bool = False):
+    """Graph-sharded X and Z decode of a data shard's full syndromes
+    [-> relay retries drawing from ``draws``]: ``(dx, dz, soft_x, soft_z,
+    error_code, (X, Z) loop iterations)``, the decisions and soft outputs
+    gathered over ``graph`` in global variable order (soft None unless
+    ``want_soft``)."""
+    prior = np.float32(cfg.prior_factor) * np.float32(error_probability)
+    out = []
+    for k, router, syn in ((0, routers_xz[0], sx), (1, routers_xz[1], sz)):
+        d, cf, sf, it, soft = _decode_one_graph_sharded(mesh, router, syn,
+                                                        prior, cfg, want_soft)
+        if draws is not None:
+            gammas = draws.gammas(k, router.Lc * router.P, syn.shape[-1])
+            d, solved, extra = _relay_one_graph_sharded(
+                mesh, router, syn, prior_llr(prior), cfg, gammas, d, ~sf,
+                relay_retries)
+            sf, it = ~solved, it + extra
+        # rank g owns block columns [g*Lc, (g+1)*Lc): the gathered shards
+        # are the global variable order
+        d, soft = (None if a is None else
+                   mesh.all_gather(a, GRAPH_AXIS).reshape(-1, syn.shape[-1])
+                   for a in (d, soft))
+        out.append((d, soft, cf, sf, it))
+    (dx, softx, cfx, sfx, itx), (dz, softz, cfz, sfz, itz) = out
+    return dx, dz, softx, softz, error_code(sfx, sfz, cfx, cfz), (itx, itz)
 
 
 def make_graph_sharded_chunk(mesh: Mesh, graphs: CodeGraphs, weight: int,
@@ -56,36 +113,12 @@ def make_graph_sharded_chunk(mesh: Mesh, graphs: CodeGraphs, weight: int,
     counts samples per data shard (every graph shard works on the same
     samples).  ``relay_retries > 0`` repairs failed lanes with graph-sharded
     damped retries, each rank drawing the damping of its own variables from
-    the generator of (seed, chunk, RELAY_STREAM, data index, graph index)."""
-    if cfg.kernel == "pallas" and (cfg.algorithm != "min-sum"
-                                   or not isinstance(graphs.x, CirculantGraph)):
-        raise ValueError(
-            "cfg.kernel='pallas' with num_graph > 1 is only supported for "
-            "algorithm='min-sum' on circulant QC codes (the fused "
-            "between-halos kernel); use kernel='xla' for this combination")
+    ``relay_draws(seed, chunk, device, data index, graph index)``."""
+    _reject_unsupported_pallas(graphs, cfg)
     if mesh.size(GRAPH_AXIS) <= 1:
         raise ValueError("graph axis has size 1; use make_sharded_chunk")
     x_router, z_router = routers(mesh, graphs)
     didx, gidx = mesh.rank(DATA_AXIS), mesh.rank(GRAPH_AXIS)
-    n = graphs.code.n
-
-    def decode_chunk(sx, sz, error_probability, relay_gen):
-        prior = np.float32(cfg.prior_factor) * np.float32(error_probability)
-        out = []
-        for router, syn in ((x_router, sx), (z_router, sz)):
-            d, cf, sf, it = _decode_one_graph_sharded(mesh, router, syn,
-                                                      prior, cfg)
-            if relay_gen is not None:
-                d, solved, extra = _relay_one_graph_sharded(
-                    mesh, router, syn, prior_llr(prior), cfg, relay_gen, d,
-                    ~sf, relay_retries)
-                sf, it = ~solved, it + extra
-            # rank g owns block columns [g*Lc, (g+1)*Lc): the gathered
-            # shards are the global variable order
-            out.append((mesh.all_gather(d, GRAPH_AXIS).reshape(n, -1), cf,
-                        sf, it))
-        (dx, cfx, sfx, itx), (dz, cfz, sfz, itz) = out
-        return dx, dz, error_code(sfx, sfz, cfx, cfz), (itx, itz)
 
     def chunk_fn(i_minus_p, seed, error_probability, chunk_ids, *, device):
         device = torch.device(device)
@@ -95,14 +128,134 @@ def make_graph_sharded_chunk(mesh: Mesh, graphs: CodeGraphs, weight: int,
             xe, ze, sx, sz = sample_syndromes(
                 graphs, chunk_generator(seed, c, device, didx), weight,
                 error_probability, batch_per_device, error_model)
-            relay_gen = (relay_generator(seed, c, device, didx, gidx)
-                         if relay_retries > 0 else None)
-            dx, dz, code, its = decode_chunk(sx, sz, error_probability,
-                                             relay_gen)
+            draws = (relay_draws(seed, c, device, didx, gidx)
+                     if relay_retries > 0 else None)
+            dx, dz, _, _, code, its = _decode_chunk(
+                mesh, (x_router, z_router), cfg, sx, sz, error_probability,
+                draws, relay_retries)
             counters += classify_batch(i_minus_p, xe, ze, dx.to(torch.int32),
                                        dz.to(torch.int32), code)
             lane_iters += np.asarray(its) * batch_per_device
         iters = torch.from_numpy(lane_iters).to(device)
         return reduce_over_data(mesh, counters, iters)
+
+    return chunk_fn
+
+
+def _check_graph_osd_mesh(mesh: Mesh, graphs: CodeGraphs, cfg: BPConfig,
+                          batch: int):
+    """The validation of the graph-sharded soft-output chunks: returns this
+    rank's (columns of the chunk, X and Z shard routers)."""
+    _reject_unsupported_pallas(graphs, cfg)
+    if not isinstance(graphs.x, CirculantGraph):
+        raise ValueError(
+            "graph-sharded OSD arrays need circulant QC codes (the lifted "
+            "lane-sharded engine has no soft outputs); use num_graph=1")
+    if mesh.size(GRAPH_AXIS) <= 1:
+        raise ValueError("graph axis has size 1; use "
+                         "montecarlo.make_osd_chunk")
+    lanes, _ = data_shard(mesh, batch)
+    return lanes, routers(mesh, graphs)
+
+
+def _soft_decode_shard(mesh: Mesh, graphs: CodeGraphs, lanes: slice,
+                       routers_xz, cfg: BPConfig, weight: int,
+                       error_model: str, relay_retries: int, batch: int,
+                       seed: int, chunk: int, error_probability: float,
+                       device: torch.device):
+    """One rank's half of a soft-output quality chunk: draw global chunk
+    ``chunk``'s full ``batch`` from the generator of (seed, chunk), keep the
+    data shard's ``lanes``, decode them graph-sharded with soft outputs
+    [-> graph-sharded relay, each rank's gammas from
+    ``relay_draws(seed, chunk, device, graph index)``].  Returns the shard's
+    ``(xe, ze, sx, sz, DecodeResult)``, decisions and soft outputs in
+    global variable order and ``iter_samples_*`` the shard's executed
+    lane-iterations (loop iterations x lanes)."""
+    xe, ze, sx, sz = sample_syndromes(
+        graphs, chunk_generator(seed, chunk, device), weight,
+        error_probability, batch, error_model, lanes=lanes)
+    draws = (relay_draws(seed, chunk, device, mesh.rank(GRAPH_AXIS))
+             if relay_retries > 0 else None)
+    dx, dz, softx, softz, code, (itx, itz) = _decode_chunk(
+        mesh, routers_xz, cfg, sx, sz, error_probability, draws,
+        relay_retries, want_soft=True)
+    # filled on the device: a tensor built from host values would block
+    ix, iz, isx, isz = (torch.full((), v, dtype=torch.int64, device=device)
+                        for v in (itx, itz, itx * sx.shape[-1],
+                                  itz * sx.shape[-1]))
+    res = DecodeResult(decisions_x=dx, decisions_z=dz, error_code=code,
+                       iters_x=ix, iters_z=iz, iter_samples_x=isx,
+                       iter_samples_z=isz, soft_x=softx, soft_z=softz)
+    return xe, ze, sx, sz, res
+
+
+def make_graph_sharded_arrays_chunk(mesh: Mesh, graphs: CodeGraphs,
+                                    weight: int, cfg: BPConfig, batch: int,
+                                    error_model: str = "weight",
+                                    relay_retries: int = 0):
+    """One Monte-Carlo chunk over a (data x graph) mesh returning the full
+    per-lane arrays, the graph-sharded sibling of
+    ``montecarlo.mc_chunk_arrays(mesh=)`` (debugging and analysis; the
+    quality mode runs :func:`make_graph_sharded_osd_chunk`).
+
+    ``chunk_fn(seed, chunk, error_probability, *, device)`` samples the
+    ``batch`` lanes of ``mc_chunk_arrays(seed, chunk, ...)``, decodes each
+    data shard's columns graph-sharded with soft outputs, and returns on
+    every rank ``(xe, ze, sx, sz)`` int8 and the DecodeResult of the whole
+    batch, gathered over ``data``.  Min-sum's and layered min-sum's
+    decisions and soft outputs equal the single-device decode's bit for
+    bit.  Circulant codes only (the lifted engine has no soft outputs).
+    Iteration totals are each data shard's loop count x its lanes, summed
+    (the maximum for ``iters_*``): they depend on the partition."""
+    lanes, routers_xz = _check_graph_osd_mesh(mesh, graphs, cfg, batch)
+
+    def chunk_fn(seed, chunk, error_probability, *, device):
+        device = torch.device(device)
+        xe, ze, sx, sz, res = _soft_decode_shard(
+            mesh, graphs, lanes, routers_xz, cfg, weight, error_model,
+            relay_retries, batch, seed, chunk, error_probability, device)
+        xe, ze, sx, sz, dx, dz, softx, softz, code = (
+            gather_lanes(mesh, a) for a in (xe, ze, sx, sz, res.decisions_x,
+                                            res.decisions_z, res.soft_x,
+                                            res.soft_z, res.error_code))
+        its = mesh.all_gather(torch.stack([res.iters_x, res.iters_z]),
+                              DATA_AXIS)
+        bpd = res.error_code.shape[-1]
+        res = DecodeResult(decisions_x=dx, decisions_z=dz, error_code=code,
+                           iters_x=its[:, 0].max(), iters_z=its[:, 1].max(),
+                           iter_samples_x=its[:, 0].sum() * bpd,
+                           iter_samples_z=its[:, 1].sum() * bpd,
+                           soft_x=softx, soft_z=softz)
+        return (*(a.to(torch.int8) for a in (xe, ze, sx, sz)), res)
+
+    return chunk_fn
+
+
+def make_graph_sharded_osd_chunk(mesh: Mesh, graphs: CodeGraphs,
+                                 weight: int, cfg: BPConfig, batch: int,
+                                 error_model: str = "weight",
+                                 relay_retries: int = 0):
+    """The device half of the quality mode's chunk over a (data x graph)
+    mesh, with the contract of ``montecarlo.make_osd_chunk``:
+    ``chunk_fn(i_minus_p, seed, chunk, error_probability, *, device)``
+    returns ``(counters_ok, iters[2], counts fetch, bundle)`` for the rank's
+    data shard, its failed lanes compacted first.
+
+    Every graph rank of a data shard returns the same values: the
+    decisions and soft outputs are gathered over ``graph`` and the flags
+    reduced over it, so the compacted bundles are replicas.
+    ``run_monte_carlo_osd`` repairs them on every graph rank and sums the
+    counters over ``data`` alone, so each data shard counts once."""
+    lanes, routers_xz = _check_graph_osd_mesh(mesh, graphs, cfg, batch)
+
+    def chunk_fn(i_minus_p, seed, chunk, error_probability, *, device):
+        xe, ze, sx, sz, res = _soft_decode_shard(
+            mesh, graphs, lanes, routers_xz, cfg, weight, error_model,
+            relay_retries, batch, seed, chunk, error_probability,
+            torch.device(device))
+        counters, counts, bundle = _classify_and_compact(i_minus_p, xe, ze,
+                                                         sx, sz, res)
+        iters = torch.stack([res.iter_samples_x, res.iter_samples_z])
+        return counters, iters, _Fetch(counts), bundle
 
     return chunk_fn

@@ -8,11 +8,11 @@ one device:
   -> counters.
 
 Per-chunk randomness comes from ``torch.Generator``s on the device seeded
-from (seed, global chunk id) — one for the errors and, with
-``relay_retries > 0``, one for the relay decoder's damping draws — so the
-statistics do not depend on how chunks are grouped.  Counters stay on the
-device for a whole group of ``steps_per_call`` chunks; the host reads them
-once per group.
+from (seed, global chunk id): one for the errors and, with
+``relay_retries > 0``, one per relay retry and graph for the damping draws
+(:func:`relay_draws`), so the statistics do not depend on how chunks are
+grouped.  Counters stay on the device for a whole group of
+``steps_per_call`` chunks; the host reads them once per group.
 
 With a ``mesh`` (parallel/mesh.py) every rank runs the same call.  On a
 data-only mesh (:func:`make_sharded_chunk`) each rank decodes
@@ -32,9 +32,14 @@ samples, then OSD (decoder/osd.py) on the lanes BP and relay leave failed:
   failed lanes -> splice the corrections -> classify the failed lanes.
 
 On a data mesh each rank draws the chunk's full batch from the one
-generator of (seed, chunk) and decodes its own columns, as JAX does, so the
-samples are those of the single-device run.  Not ported yet: the
-graph-sharded quality chunks (ROADMAP queue 1 item 12c).
+generator of (seed, chunk) and decodes its own columns, and each relay
+retry's gammas for the full batch, as JAX does, so the samples and the
+counters are those of the single-device run; a graph axis > 1 hands the
+decode to the graph-sharded quality chunk
+(``mc_graph.make_graph_sharded_osd_chunk``).
+
+:func:`mc_chunk` and :func:`mc_chunk_arrays` are one chunk of the counting
+path: its counters, or its per-lane arrays.
 
 Not ported (TPU-only, invisible in the results): the power-of-two rounding
 of the failed-lane fetch (``_gather_failed_lanes``), which bounded the
@@ -52,10 +57,11 @@ from qec_ldpc_tpu_torch.decoder.decode import (
     SYNDROME_FAIL_X,
     SYNDROME_FAIL_Z,
     CodeGraphs,
+    DecodeResult,
     decode_batch,
 )
 from qec_ldpc_tpu_torch.decoder.osd import CSSPostprocessor, splice
-from qec_ldpc_tpu_torch.decoder.relay import relay_decode_batch
+from qec_ldpc_tpu_torch.decoder.relay import RelayDraws, relay_decode_batch
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig
 from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, Mesh
 from qec_ldpc_tpu_torch.sampling.classify import (
@@ -68,6 +74,7 @@ from qec_ldpc_tpu_torch.sampling.errors import (
     sample_depolarizing_errors,
     sample_weight_w_errors,
     sample_weight_w_errors_dynamic,
+    seeded_generator,
 )
 
 
@@ -75,30 +82,25 @@ from qec_ldpc_tpu_torch.sampling.errors import (
 RELAY_STREAM = 0x52454C41
 
 
-def _generator(entropy: list[int], device: torch.device | str) -> torch.Generator:
-    """A generator seeded from ``entropy`` alone, mixed by NumPy's
-    SeedSequence into a 64-bit seed."""
-    state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
-    g = torch.Generator(device=device)
-    g.manual_seed(int(state[0]) | (int(state[1]) << 32))
-    return g
-
-
 def chunk_generator(seed: int, chunk: int, device: torch.device | str,
                     *shard: int) -> torch.Generator:
     """The error generator of global chunk ``chunk``: a function of
     (seed, chunk) alone, and on a mesh of the rank's data index
     (``shard``)."""
-    return _generator([seed, chunk, *shard], device)
+    return seeded_generator([seed, chunk, *shard], device)
 
 
-def relay_generator(seed: int, chunk: int, device: torch.device | str,
-                    *shard: int) -> torch.Generator:
-    """The relay (damping-draw) generator of global chunk ``chunk``: a
-    function of (seed, chunk, RELAY_STREAM) and the rank's mesh indices
-    (``shard``: data index, and graph index on a graph-sharded mesh) alone,
-    independent of the error stream."""
-    return _generator([seed, chunk, RELAY_STREAM, *shard], device)
+def relay_draws(seed: int, chunk: int, device: torch.device | str,
+                *shard: int, width: int | None = None,
+                offset: int = 0) -> RelayDraws:
+    """The relay damping draws of global chunk ``chunk``: retry r of graph k
+    draws from the generator of (seed, chunk, RELAY_STREAM, ``shard``, k,
+    r), independent of the error stream and of the other graph's retries.
+    ``shard``: the rank's mesh indices where each rank has a stream of its
+    own; ``width``/``offset``: draw the full ``width`` lanes and keep this
+    rank's columns from ``offset`` (decoder/relay.py)."""
+    return RelayDraws([seed, chunk, RELAY_STREAM, *shard], device, width,
+                      offset)
 
 
 def _resolve_logical_test(graphs: CodeGraphs, i_minus_p, device):
@@ -146,11 +148,11 @@ def sample_syndromes(graphs: CodeGraphs, generator: torch.Generator,
 def _sample_and_decode(graphs: CodeGraphs, generator: torch.Generator,
                        weight: int, error_probability: float, cfg: BPConfig,
                        batch: int, error_model: str, relay_retries: int = 0,
-                       relay_gen: torch.Generator | None = None,
+                       draws: RelayDraws | None = None,
                        weight_cap: int | None = None,
                        lanes: slice | None = None):
     """Sample errors -> syndromes -> decode (relay-repaired when
-    ``relay_retries > 0``, drawing its gammas from ``relay_gen``).  Returns
+    ``relay_retries > 0``, the gammas from ``draws``).  Returns
     (xe, ze, sx, sz, res) with errors as int32; ``weight_cap`` and
     ``lanes`` as in :func:`sample_syndromes`."""
     xe_i, ze_i, sx, sz = sample_syndromes(graphs, generator, weight,
@@ -158,7 +160,7 @@ def _sample_and_decode(graphs: CodeGraphs, generator: torch.Generator,
                                           error_model, weight_cap, lanes)
     if relay_retries > 0:
         res, _, _ = relay_decode_batch(graphs, sx, sz, error_probability,
-                                       relay_gen, cfg, retries=relay_retries)
+                                       draws, cfg, retries=relay_retries)
     else:
         res = decode_batch(graphs, sx, sz, error_probability, cfg)
     return xe_i, ze_i, sx, sz, res
@@ -167,14 +169,14 @@ def _sample_and_decode(graphs: CodeGraphs, generator: torch.Generator,
 def _chunk_body(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
                 weight: int, error_probability: float, cfg: BPConfig,
                 batch: int, error_model: str, relay_retries: int = 0,
-                relay_gen: torch.Generator | None = None,
+                draws: RelayDraws | None = None,
                 weight_cap: int | None = None):
     """Sample + decode + classify one batch.  Returns device tensors
     (counters[NUM_COUNTERS] int32, iters[2]) with iters the executed BP
     lane-iterations for [X, Z], relay retries included."""
     xe_i, ze_i, _, _, res = _sample_and_decode(
         graphs, generator, weight, error_probability, cfg, batch, error_model,
-        relay_retries, relay_gen, weight_cap)
+        relay_retries, draws, weight_cap)
     counters = classify_batch(i_minus_p, xe_i, ze_i,
                               res.decisions_x.to(torch.int32),
                               res.decisions_z.to(torch.int32),
@@ -227,7 +229,7 @@ def _chunk_group(graphs: CodeGraphs, i_minus_p, chunk_ids, seed: int,
                                chunk_generator(seed, c, device, *shard),
                                weight, error_probability, cfg, batch,
                                error_model, relay_retries,
-                               relay_generator(seed, c, device, *shard)
+                               relay_draws(seed, c, device, *shard)
                                if relay_retries > 0 else None, weight_cap)
         counters += cnt
         iters += its
@@ -240,6 +242,88 @@ def reduce_over_data(mesh: Mesh, counters: torch.Tensor, iters: torch.Tensor):
                                        iters.to(torch.int64)]),
                             "sum", DATA_AXIS)
     return total[:NUM_COUNTERS], total[NUM_COUNTERS:]
+
+
+def gather_lanes(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """A (..., lanes) tensor of every data shard joined along its last axis
+    in data order: the full batch's columns.  One all_gather."""
+    g = torch.movedim(mesh.all_gather(x, DATA_AXIS), 0, -2)
+    return g.reshape(*x.shape[:-1], -1)
+
+
+def data_shard(mesh: Mesh | None, batch: int) -> tuple[slice | None, int]:
+    """(this rank's columns of a ``batch``-lane chunk, their first lane):
+    (None, 0) without a mesh."""
+    if mesh is None:
+        return None, 0
+    num_data = mesh.size(DATA_AXIS)
+    if batch % num_data:
+        raise ValueError(f"batch_size={batch} must be divisible by the "
+                         f"data-axis size {num_data}")
+    bpd = batch // num_data
+    lo = mesh.rank(DATA_AXIS) * bpd
+    return slice(lo, lo + bpd), lo
+
+
+def mc_chunk(graphs: CodeGraphs, i_minus_p, seed: int, chunk: int,
+             weight: int, error_probability: float, cfg: BPConfig,
+             batch: int, error_model: str = "weight", relay_retries: int = 0,
+             *, device: torch.device | str):
+    """One chunk of :func:`run_monte_carlo` on ``device``: the ``batch``
+    samples of global chunk ``chunk`` from the generators of (seed, chunk),
+    decoded (relay-repaired when ``relay_retries > 0``) and classified.
+    ``i_minus_p`` as in :func:`run_monte_carlo`.  Returns device tensors
+    (counters[NUM_COUNTERS] int32, iters[2]), iters the executed
+    lane-iterations for [X, Z]."""
+    device = torch.device(device)
+    return _chunk_body(graphs, _resolve_logical_test(graphs, i_minus_p, device),
+                       chunk_generator(seed, chunk, device), weight,
+                       error_probability, cfg, batch, error_model,
+                       relay_retries, relay_draws(seed, chunk, device)
+                       if relay_retries > 0 else None)
+
+
+def mc_chunk_arrays(graphs: CodeGraphs, seed: int, chunk: int, weight: int,
+                    error_probability: float, cfg: BPConfig, batch: int,
+                    error_model: str = "weight", relay_retries: int = 0,
+                    *, device: torch.device | str, mesh: Mesh | None = None):
+    """The samples and decode of :func:`mc_chunk` as per-lane arrays:
+    ``(xe, ze, sx, sz)`` int8 and the DecodeResult (soft outputs when
+    ``cfg.return_soft``), for debugging and analysis.
+
+    ``mesh`` (a data-only mesh; every rank calls with its own ``device``):
+    each data rank draws the chunk's full batch and each relay retry's
+    gammas for the full batch, decodes its own columns, and every rank
+    returns the full arrays, gathered over ``data``: they equal the
+    ``mesh=None`` call's.  Iteration totals are the data shards' sum and
+    maximum, which depend on the partition on the plain path (each shard's
+    loop exits on its own lanes)."""
+    device = torch.device(device)
+    if mesh is not None and mesh.size(GRAPH_AXIS) > 1:
+        raise ValueError("a graph axis > 1 decodes graph-sharded: use "
+                         "mc_graph.make_graph_sharded_arrays_chunk")
+    lanes, lo = data_shard(mesh, batch)
+    xe, ze, sx, sz, res = _sample_and_decode(
+        graphs, chunk_generator(seed, chunk, device), weight,
+        error_probability, cfg, batch, error_model, relay_retries,
+        relay_draws(seed, chunk, device, width=batch, offset=lo)
+        if relay_retries > 0 else None, lanes=lanes)
+    if mesh is not None:
+        def gather(a):
+            return None if a is None else gather_lanes(mesh, a)
+
+        xe, ze, sx, sz = (gather(a) for a in (xe, ze, sx, sz))
+        its = mesh.all_gather(torch.stack([
+            res.iters_x, res.iters_z, res.iter_samples_x,
+            res.iter_samples_z]).to(torch.int64), DATA_AXIS)
+        res = DecodeResult(
+            decisions_x=gather(res.decisions_x),
+            decisions_z=gather(res.decisions_z),
+            error_code=gather(res.error_code),
+            iters_x=its[:, 0].max(), iters_z=its[:, 1].max(),
+            iter_samples_x=its[:, 2].sum(), iter_samples_z=its[:, 3].sum(),
+            soft_x=gather(res.soft_x), soft_z=gather(res.soft_z))
+    return (*(a.to(torch.int8) for a in (xe, ze, sx, sz)), res)
 
 
 def make_sharded_chunk(mesh: Mesh, graphs: CodeGraphs, weight: int,
@@ -402,22 +486,36 @@ def _classify_and_compact(i_minus_p, xe, ze, sx, sz, res):
     return counters, counts, bundle
 
 
-def _osd_chunk(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
-               weight: int, error_probability: float, cfg: BPConfig,
-               batch: int, error_model: str, relay_retries: int,
-               relay_gen: torch.Generator | None, lanes: slice | None = None):
-    """The device half of one quality-mode chunk: sample, decode (with soft
-    outputs), classify the non-failed lanes, compact.  ``lanes``: decode
-    only these lanes of the ``batch`` drawn (a data shard's).  Returns
-    ``(counters_ok, iters[2], counts fetch, bundle)``; the failed-lane
-    counts are already on their way to the host."""
-    xe, ze, sx, sz, res = _sample_and_decode(
-        graphs, generator, weight, error_probability, cfg, batch, error_model,
-        relay_retries, relay_gen, lanes=lanes)
-    counters, counts, bundle = _classify_and_compact(i_minus_p, xe, ze, sx,
-                                                     sz, res)
-    iters = torch.stack([res.iter_samples_x, res.iter_samples_z])
-    return counters, iters, _Fetch(counts), bundle
+def make_osd_chunk(graphs: CodeGraphs, weight: int, cfg: BPConfig,
+                   batch: int, error_model: str = "weight",
+                   relay_retries: int = 0, mesh: Mesh | None = None):
+    """The device half of the quality mode's chunk on one device or a data
+    mesh: ``chunk_fn(i_minus_p, seed, chunk, error_probability, *,
+    device)`` samples global chunk ``chunk``'s full ``batch`` from the
+    generator of (seed, chunk), decodes (with soft outputs when ``cfg``
+    asks) this rank's columns (all of them without a mesh, the data
+    shard's on one), each relay retry drawing its gammas for the full
+    batch, classifies the non-failed lanes and compacts.  It returns
+    ``(counters_ok, iters[2], counts fetch, bundle)`` for the rank's
+    columns, the failed-lane counts already on their way to the host (the
+    contract of ``mc_graph.make_graph_sharded_osd_chunk``)."""
+    if mesh is not None and mesh.size(GRAPH_AXIS) > 1:
+        raise ValueError("graph-sharded quality chunks live in "
+                         "mc_graph.make_graph_sharded_osd_chunk")
+    lanes, lo = data_shard(mesh, batch)
+
+    def chunk_fn(i_minus_p, seed, chunk, error_probability, *, device):
+        xe, ze, sx, sz, res = _sample_and_decode(
+            graphs, chunk_generator(seed, chunk, device), weight,
+            error_probability, cfg, batch, error_model, relay_retries,
+            relay_draws(seed, chunk, device, width=batch, offset=lo)
+            if relay_retries > 0 else None, lanes=lanes)
+        counters, counts, bundle = _classify_and_compact(i_minus_p, xe, ze,
+                                                         sx, sz, res)
+        iters = torch.stack([res.iter_samples_x, res.iter_samples_z])
+        return counters, iters, _Fetch(counts), bundle
+
+    return chunk_fn
 
 
 def _repair_and_classify(post: CSSPostprocessor | None, i_minus_p,
@@ -490,39 +588,32 @@ def run_monte_carlo_osd(
     called per chunk; ``start_chunk`` / ``init_counters`` resume from
     post-repair counters at a chunk boundary.
 
-    ``mesh`` (a data-only mesh, parallel/mesh.py; ``device`` is the rank's):
-    as in JAX, every data rank draws the chunk's FULL batch from the one
-    generator of (seed, chunk) and decodes, classifies and repairs its own
+    ``mesh`` (parallel/mesh.py; ``device`` is the rank's): as in JAX,
+    every data rank draws the chunk's FULL batch from the one generator of
+    (seed, chunk) and decodes, classifies and repairs its own
     ``batch_size // num_data`` columns; the chunk's counters and
     lane-iterations are summed over the data axis (one all_reduce per
-    chunk) and every rank returns the totals.  Lanes decode independently,
-    so for min-sum and layered min-sum the counters equal the ``mesh=None``
-    run's.  Relay retries draw their gammas from the generator of (seed,
-    chunk, RELAY_STREAM, data index), so with relay the counters agree with
-    ``mesh=None``'s only statistically.  Several processes need a mesh (a
-    port mesh spans every rank), or each would count every failure.
+    chunk) and every rank returns the totals.  Each relay retry draws its
+    gammas for the full batch and keeps the rank's columns.  Lanes decode
+    independently, so for min-sum and layered min-sum, relay or not, the
+    counters equal the ``mesh=None`` run's.  A graph axis > 1 decodes
+    each data shard graph-sharded (``mc_graph.make_graph_sharded_osd_chunk``;
+    circulant codes), with JAX's per-graph-shard relay draws, so there only
+    the relay-free counters equal ``mesh=None``'s.  Every graph rank of a
+    data shard then holds the same compacted bundle; each repairs the same
+    failed lanes and classifies them, and the counters are summed over the
+    data axis alone, so each data shard's lanes count once.  Several
+    processes need a mesh (a port mesh spans every rank), or each would
+    count every failure.
 
     Returns (counters[NUM_COUNTERS] int64 numpy, total_bp_lane_iterations).
     """
     world = (torch.distributed.get_world_size()
              if torch.distributed.is_available()
              and torch.distributed.is_initialized() else 1)
-    shard, lanes = (), None
-    if mesh is not None:
-        if not isinstance(mesh, Mesh):
-            raise ValueError(f"mesh must be a parallel.mesh.Mesh, got "
-                             f"{type(mesh).__name__}")
-        if mesh.size(GRAPH_AXIS) > 1:
-            raise NotImplementedError(
-                "graph-sharded quality chunks are not ported yet (ROADMAP "
-                "queue 1 item 12c); use a data-only mesh")
-        num_data = mesh.size(DATA_AXIS)
-        if batch_size % num_data:
-            raise ValueError(f"batch_size={batch_size} must be divisible by "
-                             f"the data-axis size {num_data}")
-        bpd = batch_size // num_data
-        didx = mesh.rank(DATA_AXIS)
-        shard, lanes = (didx,), slice(didx * bpd, (didx + 1) * bpd)
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise ValueError(f"mesh must be a parallel.mesh.Mesh, got "
+                         f"{type(mesh).__name__}")
     if world > 1 and mesh is None:
         # the counters are summed over the mesh's data axis (a port mesh
         # spans every rank): without one each process would decode the full
@@ -536,6 +627,17 @@ def run_monte_carlo_osd(
     if lam >= 0:
         cfg = dataclasses.replace(cfg, return_soft=True)
         post = CSSPostprocessor(graphs, lam=lam).to(device)
+    if mesh is not None and mesh.size(GRAPH_AXIS) > 1:
+        from qec_ldpc_tpu_torch.parallel.mc_graph import (
+            make_graph_sharded_osd_chunk,
+        )
+
+        chunk_fn = make_graph_sharded_osd_chunk(mesh, graphs, weight, cfg,
+                                                batch_size, error_model,
+                                                relay_retries)
+    else:
+        chunk_fn = make_osd_chunk(graphs, weight, cfg, batch_size,
+                                  error_model, relay_retries, mesh)
     i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
     totals = np.zeros(NUM_COUNTERS, dtype=np.int64)
     if init_counters is not None:
@@ -544,11 +646,8 @@ def run_monte_carlo_osd(
     num_chunks = -(-count // batch_size)
 
     def dispatch(c):
-        return c, _osd_chunk(graphs, i_minus_p, chunk_generator(seed, c, device),
-                             weight, error_probability, cfg, batch_size,
-                             error_model, relay_retries,
-                             relay_generator(seed, c, device, *shard)
-                             if relay_retries > 0 else None, lanes)
+        return c, chunk_fn(i_minus_p, seed, c, error_probability,
+                           device=device)
 
     def tail(item):
         c, (counters_ok, iters, counts, bundle) = item

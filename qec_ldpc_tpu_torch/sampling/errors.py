@@ -10,7 +10,18 @@ or by feeding both packages the same draws (:func:`_accumulate_hits`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def seeded_generator(entropy, device: torch.device | str) -> torch.Generator:
+    """A generator on ``device`` seeded from the integers ``entropy`` alone,
+    mixed by NumPy's SeedSequence into a 64-bit seed: the port's one rule
+    for deriving a random stream (per chunk, per relay retry)."""
+    state = np.random.SeedSequence(list(entropy)).generate_state(2, np.uint32)
+    g = torch.Generator(device=device)
+    g.manual_seed(int(state[0]) | (int(state[1]) << 32))
+    return g
 
 
 def _accumulate_hits(idx: torch.Tensor, typ: torch.Tensor, n: int,

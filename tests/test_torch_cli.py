@@ -17,6 +17,7 @@ from qec_ldpc_tpu.harness import cli as jax_cli
 from qec_ldpc_tpu.harness import config as jax_config
 from qec_ldpc_tpu_torch import construct_code
 from qec_ldpc_tpu_torch.codes import save_code_file
+from qec_ldpc_tpu_torch.decoder.relay import GAMMA_HIGH, GAMMA_LOW
 from qec_ldpc_tpu_torch.harness import (
     Journal,
     load_init_file,
@@ -174,7 +175,8 @@ def _stub(progress=None, **_):
     "p_values=0.01,0.03", "error_model=depolarizing", "steps_per_call=5"])
 @pytest.mark.parametrize("weights", ["2 2", "1 3"])
 def test_run_id_matches_jax(tmp_path, monkeypatch, extra, weights):
-    """The port's run_id is JAX's followed by ``|torch=cpu``: plain, relay,
+    """The port's run_id is JAX's followed by ``|torch=cpu``, with relay's
+    draw rule (``RELAY_DRAWS_TAG``) after the relay fields: plain, relay,
     osd, physical test, p sweeps and the multi-weight (``wcap``) sweep.
     JAX's drivers are stubbed (its run_id does not depend on their
     results); the port's run for real."""
@@ -189,8 +191,12 @@ def test_run_id_matches_jax(tmp_path, monkeypatch, extra, weights):
     cli.run_sweep(load_init_file(init_file(
         tmp_path, line + f" device=cpu results_dir={tmp_path}/port "
                          f"log_file={tmp_path}/port.txt")))
-    want = {rid + "|torch=cpu" for rid in run_ids(f"{tmp_path}/jax")}
+    gammas = f"|g={GAMMA_LOW:g}:{GAMMA_HIGH:g}"
+    want = {rid.replace(gammas, gammas + cli.RELAY_DRAWS_TAG) + "|torch=cpu"
+            for rid in run_ids(f"{tmp_path}/jax")}
     assert run_ids(f"{tmp_path}/port") == want
+    assert all((cli.RELAY_DRAWS_TAG in rid) == ("relay" in extra)
+               for rid in want)
     assert any("|wcap=8" in rid for rid in want) == (
         weights == "1 3" and "osd" not in extra and "p_values" not in extra
         and "depolarizing" not in extra)

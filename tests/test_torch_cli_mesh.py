@@ -9,9 +9,14 @@ each run's results directory as ``torchrun`` ranks on one host do.
 * ``num_graph=2`` shards the graphs, with ``|ng=2`` in its run_id.
 * ``osd=0`` with min-sum (and layered min-sum, and OSD-3 on the host) on
   data=2 gives counters EQUAL to the port's single-process run: every rank
-  draws the chunk's full batch and decodes its own columns.
-* The quality mode refuses a graph mesh, naming ROADMAP item 12c, and
-  refuses to run without a mesh in several processes.
+  draws the chunk's full batch and decodes its own columns.  With relay
+  too, for min-sum and layered min-sum with OSD-0 and OSD-1: each retry
+  draws its gammas for the full batch and keeps the rank's columns.
+* ``osd=0`` with ``num_graph=2`` (data=1 x graph=2) gives the
+  single-process run's counters, through the CLI and directly.
+* ``mc_chunk_arrays`` on data=2 returns, on every rank, the full arrays of
+  the ``mesh=None`` call, relay included.
+* The quality mode refuses to run without a mesh in several processes.
 """
 
 from pathlib import Path
@@ -25,7 +30,10 @@ from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs
 from qec_ldpc_tpu_torch.harness import load_init_file, parse_reference_text
 from qec_ldpc_tpu_torch.harness.cli import run_sweep
 from qec_ldpc_tpu_torch.parallel import mesh as port_mesh
-from qec_ldpc_tpu_torch.parallel.montecarlo import run_monte_carlo_osd
+from qec_ldpc_tpu_torch.parallel.montecarlo import (
+    mc_chunk_arrays,
+    run_monte_carlo_osd,
+)
 
 from tests import torch_mesh_workers
 
@@ -39,9 +47,15 @@ LINES = {
              f"num_graph=2",
     "osd": f"{SPEC} 4 4 256 15 0.02 seed=5 batch_size=64 algorithm=min-sum "
            f"osd=0",
+    "graph_osd": f"{SPEC} 4 4 256 15 0.02 seed=5 batch_size=64 "
+                 f"algorithm=min-sum osd=0 num_graph=2",
 }
-OSD_RUNS = [("min-sum", 4, 256, 64, 0), ("layered-min-sum", 4, 256, 64, 0),
-            ("min-sum", 5, 128, 64, 3)]
+# (algorithm, weight, count, batch, lam, relay retries)
+OSD_RUNS = [("min-sum", 4, 256, 64, 0, 0), ("layered-min-sum", 4, 256, 64, 0, 0),
+            ("min-sum", 5, 128, 64, 3, 0),
+            ("min-sum", 5, 256, 64, 0, 4), ("min-sum", 5, 256, 64, 1, 4),
+            ("layered-min-sum", 5, 256, 64, 0, 4),
+            ("layered-min-sum", 5, 256, 64, 1, 4)]
 STAT_KEYS = ("num_errors_tested", "num_x_errors_tested", "num_z_errors_tested",
              "corrected", "syndrome_errors_x", "syndrome_errors_z",
              "logical_errors", "convergence_fail_x", "convergence_fail_z",
@@ -130,24 +144,69 @@ def test_osd_sweep_equals_the_single_process_run(world, tmp_path):
     assert "resuming W=4" in (tmp / "osd-log.txt").read_text()
 
 
+def test_graph_osd_sweep_equals_the_single_process_run(world, tmp_path):
+    """``osd=0`` with ``num_graph=2`` on the world (data=1 x graph=2): the
+    single-process run's counters, ``|ng=2`` in the run_id, and a resume."""
+    tmp, ranks = world
+    single = run_sweep(load_init_file(write_init(tmp_path, "osd",
+                                                 LINES["osd"])))
+    want = stats([s.to_dict() for s in single])
+    for rank in ranks:
+        for run in rank["graph_osd"]["runs"]:
+            assert [g[:-1] for g in stats(run)] == [w[:-1] for w in want]
+    (run_id,) = ranks[0]["graph_osd"]["run_ids"]
+    assert "|osd=0|ng=2|" in run_id
+    assert "mesh data=1 x graph=2" in (tmp / "graph_osd-log.txt").read_text()
+    assert "resuming W=4" in (tmp / "graph_osd-log.txt").read_text()
+
+
 @pytest.mark.parametrize("i", range(len(OSD_RUNS)))
 def test_quality_mode_on_data_mesh_equals_mesh_none(world, i):
     _, ranks = world
-    alg, w, count, batch, lam = OSD_RUNS[i]
+    alg, w, count, batch, lam, relay = OSD_RUNS[i]
     graphs = CodeGraphs.build(construct_code(3, 3, 6, 7, 2, 3))
-    want, _ = run_monte_carlo_osd(graphs, w, count, 0.02,
-                                  BPConfig(max_iters=15, algorithm=alg),
-                                  seed=7, batch_size=batch, lam=lam,
-                                  device="cpu")
+    cfg = BPConfig(max_iters=15, algorithm=alg)
+    want, _ = run_monte_carlo_osd(graphs, w, count, 0.02, cfg, seed=7,
+                                  batch_size=batch, lam=lam,
+                                  relay_retries=relay, device="cpu")
     for rank in ranks:
         np.testing.assert_array_equal(rank["osd_direct"][i], want)
     assert want[0] == count and want[4] == want[5] == 0
+    if relay:
+        # the retries ran and changed the outcome
+        unrelayed, _ = run_monte_carlo_osd(graphs, w, count, 0.02, cfg,
+                                           seed=7, batch_size=batch, lam=lam,
+                                           device="cpu")
+        assert not np.array_equal(unrelayed, want)
 
 
 def test_quality_mode_refuses_a_graph_mesh(world):
+    """The quality mode on a (data=1 x graph=2) mesh gives the counters of
+    the single-process run."""
     _, ranks = world
+    graphs = CodeGraphs.build(construct_code(3, 3, 6, 7, 2, 3))
+    want, _ = run_monte_carlo_osd(graphs, 4, 64, 0.02,
+                                  BPConfig(max_iters=15, algorithm="min-sum"),
+                                  seed=7, batch_size=32, device="cpu")
     for rank in ranks:
-        assert rank["graph_osd"] is not None and "12c" in rank["graph_osd"]
+        np.testing.assert_array_equal(rank["graph_osd_direct"], want)
+    assert want[4] == want[5] == 0
+
+
+@pytest.mark.parametrize("relay", [0, 4])
+def test_mc_chunk_arrays_on_data_mesh_equals_mesh_none(world, relay):
+    _, ranks = world
+    graphs = CodeGraphs.build(construct_code(3, 3, 6, 7, 2, 3))
+    want = torch_mesh_workers.arrays_of(mc_chunk_arrays(
+        graphs, 7, 2, 5, 0.02, BPConfig(max_iters=15, algorithm="min-sum",
+                                        return_soft=True),
+        64, relay_retries=relay, device="cpu"))
+    assert want["soft_x"].shape == (graphs.code.n, 64)
+    for rank in ranks:
+        got = rank["arrays"][relay // 4]
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_quality_mode_needs_a_mesh_in_several_processes(world):

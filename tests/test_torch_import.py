@@ -12,7 +12,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "qec_ldpc_tpu_torch"
 PORT_FILES = sorted(p for p in PORT.rglob("*.py") if "_build" not in p.parts) + [
-    ROOT / "chip_smoke.py", ROOT / "profile_cells.py", ROOT / "workloads.py",
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "profile_cells.py",
+    ROOT / "workloads.py",
     # the rank functions that spawned processes import, and the OSD-0
     # kernel's corner cases, which the card's test run imports
     ROOT / "tests" / "torch_mesh_workers.py", ROOT / "tests" / "osd0_cases.py"]
@@ -45,6 +46,9 @@ def test_import_leaves_jax_out():
             "import qec_ldpc_tpu_torch.harness.cli, qec_ldpc_tpu_torch.harness.config\n"
             "import qec_ldpc_tpu_torch.harness.journal, qec_ldpc_tpu_torch.harness.debug\n"
             "import qec_ldpc_tpu_torch.decoder.validate\n"
+            "from qec_ldpc_tpu_torch.parallel import (mc_chunk, mc_chunk_arrays,\n"
+            "    make_graph_sharded_arrays_chunk, make_graph_sharded_osd_chunk)\n"
+            "import bench_torch\n"
             "qec_ldpc_tpu_torch.codes.known_bicycle_code('[[144,12,12]]').build_graphs()\n"
             "qec_ldpc_tpu_torch.codes.toric_code(3).build_graphs()\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'qec_ldpc_tpu')\n"
@@ -97,3 +101,14 @@ def test_scan_covers_the_mesh_modules():
             "qec_ldpc_tpu_torch/parallel/mc_graph.py",
             "qec_ldpc_tpu_torch/kernels/sharded_step_cuda.py",
             "tests/torch_mesh_workers.py"} <= names
+
+
+def test_scan_covers_the_bench_and_the_quality_chunks():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "bench_torch.py" in names
+    from qec_ldpc_tpu_torch import parallel
+
+    for name in ("mc_chunk", "mc_chunk_arrays",
+                 "make_graph_sharded_arrays_chunk",
+                 "make_graph_sharded_osd_chunk"):
+        assert callable(getattr(parallel, name)), name

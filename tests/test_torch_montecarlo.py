@@ -30,7 +30,7 @@ from qec_ldpc_tpu_torch.parallel.montecarlo import (
     RELAY_STREAM,
     chunk_generator,
     effective_steps_per_call,
-    relay_generator,
+    relay_draws,
     run_monte_carlo,
 )
 from qec_ldpc_tpu_torch.sampling import (
@@ -187,11 +187,15 @@ def test_relay_deterministic_in_seed_and_grouping(g42):
 
 
 def test_relay_generator_is_its_own_stream():
-    a = relay_generator(5, 3, "cpu")
-    b = chunk_generator(5, 3, "cpu")
-    c = relay_generator(5, 3, "cpu")
-    assert not torch.equal(a.get_state(), b.get_state())
-    assert torch.equal(a.get_state(), c.get_state())
+    """Each retry of each graph draws from a generator of its own, apart
+    from the error stream; the same arguments give the same draws."""
+    x = relay_draws(5, 3, "cpu").gammas(0, 7, 4)
+    again = relay_draws(5, 3, "cpu").gammas(0, 7, 4)
+    z = relay_draws(5, 3, "cpu").gammas(1, 7, 4)
+    errors = torch.rand((7, 4), generator=chunk_generator(5, 3, "cpu"))
+    assert torch.equal(x(0), again(0)) and torch.equal(x(1), again(1))
+    assert not torch.equal(x(0), x(1)) and not torch.equal(x(0), z(0))
+    assert not torch.equal(x(0), errors * 0.95 + 0.05)
     assert RELAY_STREAM == 0x52454C41
 
 

@@ -18,6 +18,7 @@ from qec_ldpc_tpu.decoder import CodeGraphs as JaxCodeGraphs
 from qec_ldpc_tpu.decoder.osd import CSSPostprocessor as JaxCSSPostprocessor
 from qec_ldpc_tpu.parallel import montecarlo as jax_mc
 from qec_ldpc_tpu.sampling.classify import make_rank_basis_test as jax_rank_basis_test
+from qec_ldpc_tpu_torch.codes import toric_code
 from qec_ldpc_tpu_torch.convert import graphs_from_jax, rank_basis_test_from_numpy
 from qec_ldpc_tpu_torch.decoder import BPConfig, DecodeResult
 from qec_ldpc_tpu_torch.decoder.osd import CSSPostprocessor
@@ -223,9 +224,12 @@ def graph_mesh_shape() -> Mesh:
     return mesh
 
 
-# the data axis is ported; the graph-sharded quality chunks are not
+# a lifted code on a graph mesh: the graph-sharded quality chunks serve
+# circulant codes alone, as JAX's do (the lifted engine has no soft outputs)
 @pytest.mark.parametrize("kwargs", [{"mesh": graph_mesh_shape()}])
-def test_unported_options_raise(g42, kwargs):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_monte_carlo_osd(g42, 1, 64, 0.02, BPConfig(), seed=1,
+def test_unported_options_raise(kwargs):
+    toric = toric_code(3).build_graphs()
+    with pytest.raises(ValueError, match="circulant"):
+        run_monte_carlo_osd(toric, 1, 64, 0.02,
+                            BPConfig(algorithm="min-sum"), seed=1,
                             batch_size=64, device="cpu", **kwargs)

@@ -65,10 +65,8 @@ def syndromes(jg, weight, batch, seed):
     return np.array(sx), np.array(sz)
 
 
-def generator(seed):
-    g = torch.Generator()
-    g.manual_seed(seed)
-    return g
+def draws(seed):
+    return relay.RelayDraws([seed], "cpu")
 
 
 def test_zero_damping_equals_undamped(g42):
@@ -140,7 +138,7 @@ def test_flags_and_accounting(g42):
     sx, sz = (torch.from_numpy(s) for s in syndromes(jg, 4, batch, seed=3))
     cfg = bpconfig_from_jax(CFG)
     base = decode_batch(tg, sx, sz, P_ERR, cfg)
-    res, rx, rz = relay.relay_decode_batch(tg, sx, sz, P_ERR, generator(7),
+    res, rx, rz = relay.relay_decode_batch(tg, sx, sz, P_ERR, draws(7),
                                            cfg, retries=4)
     ec0, ec = base.error_code, res.error_code
     assert 0 < rx <= 4 and 0 < rz <= 4
@@ -165,16 +163,18 @@ def test_flags_and_accounting(g42):
         assert extra > 0 and extra % batch == 0
 
 
-def test_clean_batch_is_a_no_op(g42):
+def test_clean_batch_is_a_no_op(g42, monkeypatch):
     _, tg = g42
     s = torch.zeros((tg.x.num_checks, 64), dtype=torch.int32)
     cfg = bpconfig_from_jax(CFG)
     base = decode_batch(tg, s, s, P_ERR, cfg)
-    g = generator(9)
-    state = g.get_state()
-    res, rx, rz = relay.relay_decode_batch(tg, s, s, P_ERR, g, cfg, retries=8)
+    seeded = []
+    monkeypatch.setattr(relay, "seeded_generator",
+                        lambda *a: seeded.append(a))
+    res, rx, rz = relay.relay_decode_batch(tg, s, s, P_ERR, draws(9), cfg,
+                                           retries=8)
     assert rx == rz == 0
-    assert torch.equal(g.get_state(), state)  # no gammas drawn
+    assert seeded == []  # no gammas drawn
     for f in ("decisions_x", "decisions_z", "error_code", "iter_samples_x",
               "iter_samples_z"):
         assert torch.equal(getattr(res, f), getattr(base, f)), f
@@ -192,7 +192,7 @@ def test_repair_rate_agrees_with_jax(g42):
     base = decode_batch(tg, torch.from_numpy(sx), torch.from_numpy(sz), P_ERR,
                         bpconfig_from_jax(CFG))
     res_t, _, _ = relay.relay_decode_batch(
-        tg, torch.from_numpy(sx), torch.from_numpy(sz), P_ERR, generator(4),
+        tg, torch.from_numpy(sx), torch.from_numpy(sz), P_ERR, draws(4),
         bpconfig_from_jax(CFG), retries=8)
     fail0 = int(((base.error_code & SYN_BITS) != 0).sum())
     left_t = int(((res_t.error_code & SYN_BITS) != 0).sum())

@@ -16,6 +16,7 @@ from qec_ldpc_tpu.decoder import CodeGraphs as JaxCodeGraphs
 from qec_ldpc_tpu.decoder import decode_batch as jax_decode_batch
 from qec_ldpc_tpu_torch.convert import bpconfig_from_jax, graphs_from_jax
 from qec_ldpc_tpu_torch.decoder import BPConfig, decode_batch, relay_decode_batch
+from qec_ldpc_tpu_torch.decoder.relay import RelayDraws
 
 # one intra-op thread: the suite runs in several worker processes at once
 torch.set_num_threads(1)
@@ -115,7 +116,7 @@ def test_relay_passes_soft_through(graphs, code):
     cfg = BPConfig(max_iters=20, algorithm="min-sum", return_soft=True)
     sx, sz = torch.from_numpy(sx), torch.from_numpy(sz)
     primary = decode_batch(tg, sx, sz, 0.02, cfg)
-    gen = torch.Generator().manual_seed(4)
-    res, _, _ = relay_decode_batch(tg, sx, sz, 0.02, gen, cfg, retries=3)
+    res, _, _ = relay_decode_batch(tg, sx, sz, 0.02, RelayDraws([4], "cpu"),
+                                   cfg, retries=3)
     assert torch.equal(res.soft_x, primary.soft_x)
     assert torch.equal(res.soft_z, primary.soft_z)

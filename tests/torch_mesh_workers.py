@@ -1,6 +1,7 @@
 """Rank functions of the port's mesh tests (``test_torch_mesh.py``,
 ``test_torch_graph_sharded.py``, ``test_torch_mc_graph.py``,
-``test_torch_cli_mesh.py``).
+``test_torch_cli_mesh.py``, ``test_torch_graph_osd.py``,
+``test_torch_graph_soft.py``).
 
 ``qec_ldpc_tpu_torch.parallel.mesh.spawn`` runs each in a fresh process per
 rank, which imports this module: it imports neither JAX nor the JAX
@@ -19,11 +20,15 @@ from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs
 from qec_ldpc_tpu_torch.harness import Journal, load_init_file
 from qec_ldpc_tpu_torch.harness.cli import run_sweep
 from qec_ldpc_tpu_torch.parallel.graph_sharded import make_graph_sharded_decoder
-from qec_ldpc_tpu_torch.parallel.mc_graph import make_graph_sharded_chunk
+from qec_ldpc_tpu_torch.parallel.mc_graph import (
+    make_graph_sharded_arrays_chunk,
+    make_graph_sharded_chunk,
+)
 from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, make_mesh
 from qec_ldpc_tpu_torch.parallel.montecarlo import (
     effective_steps_per_call,
     make_sharded_chunk,
+    mc_chunk_arrays,
     run_monte_carlo,
     run_monte_carlo_osd,
 )
@@ -142,13 +147,24 @@ def mesh_cases(mesh, params: tuple, seed: int, p: float, spc_cases) -> dict:
     return out
 
 
+def arrays_of(chunk: tuple) -> dict:
+    """A chunk's (xe, ze, sx, sz, DecodeResult) as NumPy arrays by name."""
+    xe, ze, sx, sz, res = chunk
+    out = dict(xe=xe, ze=ze, sx=sx, sz=sz, dx=res.decisions_x,
+               dz=res.decisions_z, code=res.error_code, soft_x=res.soft_x,
+               soft_z=res.soft_z)
+    return {k: None if v is None else v.numpy() for k, v in out.items()}
+
+
 def cli_cases(mesh, init_files: dict, osd_runs: list) -> dict:
     """The CLI on every rank of the world: each init file of
     ``init_files`` (name -> path; the ranks share its results directory)
     is run twice, the second run resuming from rank 0's journal; then
     ``run_monte_carlo_osd`` directly on the data mesh for each (algorithm,
-    weight, count, batch, lam) of ``osd_runs``, and once without a mesh and
-    once on a graph mesh, which must both refuse."""
+    weight, count, batch, lam, relay retries) of ``osd_runs`` and on a
+    (data=1 x graph=2) mesh, ``mc_chunk_arrays`` on the data mesh without
+    and with relay, and the quality mode without a mesh, which must
+    refuse."""
     torch.set_num_threads(1)
     out = {}
     for name, path in init_files.items():
@@ -160,8 +176,14 @@ def cli_cases(mesh, init_files: dict, osd_runs: list) -> dict:
     graphs = CodeGraphs.build(construct_code(3, 3, 6, 7, 2, 3))
     out["osd_direct"] = [run_monte_carlo_osd(
         graphs, w, count, 0.02, BPConfig(max_iters=15, algorithm=alg),
-        seed=7, batch_size=batch, lam=lam, mesh=mesh, device="cpu")[0]
-        for alg, w, count, batch, lam in osd_runs]
+        seed=7, batch_size=batch, lam=lam, relay_retries=relay, mesh=mesh,
+        device="cpu")[0]
+        for alg, w, count, batch, lam, relay in osd_runs]
+    out["arrays"] = [arrays_of(mc_chunk_arrays(
+        graphs, 7, 2, 5, 0.02, BPConfig(max_iters=15, algorithm="min-sum",
+                                        return_soft=True),
+        64, relay_retries=relay, device="cpu", mesh=mesh))
+        for relay in (0, 4)]
     try:
         run_monte_carlo_osd(graphs, 4, 64, 0.02,
                             BPConfig(max_iters=15, algorithm="min-sum"),
@@ -169,15 +191,31 @@ def cli_cases(mesh, init_files: dict, osd_runs: list) -> dict:
         out["osd_no_mesh"] = None
     except ValueError as e:
         out["osd_no_mesh"] = str(e)
-    graph_mesh = make_mesh(1, 2, device_type="cpu")
-    try:
-        run_monte_carlo_osd(graphs, 4, 64, 0.02,
-                            BPConfig(max_iters=15, algorithm="min-sum"),
-                            seed=7, batch_size=32, mesh=graph_mesh,
-                            device="cpu")
-        out["graph_osd"] = None
-    except NotImplementedError as e:
-        out["graph_osd"] = str(e)
+    out["graph_osd_direct"] = run_monte_carlo_osd(
+        graphs, 4, 64, 0.02, BPConfig(max_iters=15, algorithm="min-sum"),
+        seed=7, batch_size=32, mesh=make_mesh(1, 2, device_type="cpu"),
+        device="cpu")[0]
+    return out
+
+
+def graph_osd_cases(mesh, params: tuple, seed: int, p: float,
+                    runs: list) -> dict:
+    """The quality mode on this (data x graph) mesh for each (algorithm,
+    weight, count, batch, lam, relay retries) of ``runs``, a relay run
+    twice; and ``make_graph_sharded_arrays_chunk`` for each algorithm, with
+    soft outputs."""
+    torch.set_num_threads(1)
+    graphs = CodeGraphs.build(construct_code(*params))
+    out = {"rank": (mesh.rank(DATA_AXIS), mesh.rank(GRAPH_AXIS))}
+    for i, (alg, w, count, batch, lam, relay) in enumerate(runs):
+        out[i] = [run_monte_carlo_osd(
+            graphs, w, count, p, BPConfig(max_iters=15, algorithm=alg),
+            seed=seed, batch_size=batch, lam=lam, relay_retries=relay,
+            mesh=mesh, device="cpu")[0] for _ in range(2 if relay else 1)]
+    out["arrays"] = {alg: arrays_of(make_graph_sharded_arrays_chunk(
+        mesh, graphs, 5, BPConfig(max_iters=15, algorithm=alg), 64)(
+            seed, 1, p, device="cpu"))
+        for alg in ("min-sum", "layered-min-sum", "sum-product")}
     return out
 
 
