@@ -145,9 +145,11 @@ exit) if any phase fails:
              p=0.01, 30 iterations, 4 chunks of 1024 lanes per data shard),
              min-sum held to a JAX CPU run (SHARDED_MIN_SUM_CORRECTED) by a
              two-proportion test; at (data=2 x graph=2) the same runs
-             graph-sharded: min-sum and layered counters equal the
-             data-only ones exactly, sum-product within |z| < 4, every rank
-             launches K8 once per X and Z loop iteration and K2 never; the
+             graph-sharded: min-sum and layered counters and per-chunk
+             lane-iterations (each lane its own count, as the kernels
+             count) equal the data-only ones exactly, sum-product within
+             |z| < 4, every rank launches K8 once per X and Z loop
+             iteration and K2 never; the
              backend, collectives per iteration and host syncs per chunk
              are printed; in every graph-sharded chunk, every lane that
              reports no syndrome failure must satisfy its syndrome
@@ -190,10 +192,32 @@ exit) if any phase fails:
  25. bench   ``bench_torch.main`` at 1/8 of bench.py's counts
              (BENCH_COUNTS), each workload's gate at that count; K1, K2, K3
              and K5 must launch
+ 26. lifted  the lane-sharded lifted engine at (data=1 x graph=3) over
+             gloo: the BB cell of benchmarks/large_code_scaling.py:154-177,
+             [[756,16,34]], W=24, p = 0.01, at most 30 iterations, 4 chunks
+             of 2048; min-sum and sum-product counters and lane-iterations
+             equal the single-device decode of the same samples through K5
+             and K6, no rank launches a kernel, and every rank issues two
+             all_gathers per loop iteration and six a chunk; relay with 8
+             retries, cut to 1 chunk, twice: deterministic, the tested
+             count kept, no more syndrome failures; then the CLI with
+             ``bb:[[144,12,12]]``, depolarizing p = 0.01, sum-product and
+             ``--num_graph 2`` on two ranks: its record equals the
+             single-device run of the data shard's samples through K6
+ 27. examples each example of examples_torch/ on the card through its
+             ``main``: quickstart (K1), bicycle_demo (K5), quality_pipeline
+             (K3, relay on K2) at their defaults, and graph_parallel_demo
+             at (data=2 x graph=2) (cut from 4 x 2: four ranks on the one
+             card), whose own assertion holds, its data ranks launching K2
+             and its graph ranks K8 alone
 
-Phases 20, 21, 23 and 24 share one card between their ranks, and gloo
-stages every collective through host memory: their times are not
-multi-card numbers.
+Phases 20, 21, 23, 24, 26 and 27's graph demo share one card between
+their ranks, and gloo stages every collective through host memory: their
+times are not multi-card numbers.
+
+Every process a phase starts (nvcc, g++, nvidia-smi, the ranks of a world
+and multiprocessing's resource tracker) has exited by the end of the run:
+the run fails if one of its descendants is still alive.
 
 A check passes with 0 mismatches: finite messages bit for bit, NaN masks,
 decisions, failure flags and each lane's iteration count.  The last four lines
@@ -216,6 +240,7 @@ import sys
 import tempfile
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -270,6 +295,7 @@ from qec_ldpc_tpu_torch.sampling import (
     C_SYN_Z,
     C_TESTED,
     NUM_COUNTERS,
+    classify_batch,
     make_rank_basis_test,
 )
 from qec_ldpc_tpu_torch.sampling.errors import (
@@ -278,6 +304,12 @@ from qec_ldpc_tpu_torch.sampling.errors import (
 )
 
 import bench_torch
+from examples_torch import (
+    bicycle_demo,
+    graph_parallel_demo,
+    quality_pipeline,
+    quickstart,
+)
 from workloads import (
     BATCH,
     CHUNKS,
@@ -292,6 +324,16 @@ from workloads import (
     GROSS_RELAY_RETRIES,
     HEADLINE_CODE,
     K8_BATCHES,
+    LIFTED_CLI_CHUNKS,
+    LIFTED_CLI_GRAPH,
+    LIFTED_MESH_CHUNKS,
+    LIFTED_MESH_CODE,
+    LIFTED_MESH_GRAPH,
+    LIFTED_MESH_ITERS,
+    LIFTED_MESH_P,
+    LIFTED_MESH_RELAY_CHUNKS,
+    LIFTED_MESH_RELAY_RETRIES,
+    LIFTED_MESH_WEIGHT,
     MAX_ITERS,
     OSD_BATCH,
     OSD_CHUNKS,
@@ -435,6 +477,29 @@ def ptxas_report(log: str) -> list:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+def descendants() -> dict:
+    """pid -> command line of every living (or unreaped) descendant of this
+    process, from the parent pids in /proc/<pid>/stat."""
+    parent, cmd = {}, {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        pid = int(stat.parent.name)
+        try:
+            # the fields after the parenthesised name: state, ppid, ...
+            parent[pid] = int(stat.read_text().rpartition(")")[2].split()[1])
+            cmd[pid] = (stat.parent / "cmdline").read_bytes().replace(
+                b"\0", b" ").decode(errors="replace").strip()
+        except (OSError, IndexError, ValueError):  # exited meanwhile
+            continue
+    found, frontier = {}, [os.getpid()]
+    while frontier:
+        ppid = frontier.pop()
+        for pid, pp in parent.items():
+            if pp == ppid and pid not in found:
+                found[pid] = cmd[pid]
+                frontier.append(pid)
+    return found
 
 
 def say(phase: str, **fields) -> None:
@@ -1389,21 +1454,31 @@ def auditing_syndromes(graphs: CodeGraphs, device):
         mc_graph.classify_batch = classify
 
 
+def graphs_of(params) -> CodeGraphs:
+    """A published bivariate bicycle label, or construct_code's
+    parameters -> the code's graphs."""
+    if isinstance(params, str):
+        return known_bicycle_code(params).build_graphs()
+    return CodeGraphs.build(construct_code(*params))
+
+
 def mesh_runs(mesh, runs: list) -> dict:
-    """Rank function of phases 20 and 21 (run in each spawned rank): every
-    run (label, code, weight, p, BPConfig kwargs, chunks, batch size, seed,
-    relay retries) through ``run_monte_carlo(mesh=)``, with every launch
-    count set to 0 just before it and read just after, the collectives and
-    host syncs it made, and the syndrome audit of its graph-sharded chunks
-    (``auditing_syndromes``; [0, 0] on a data-only mesh).  One chunk per
-    group, so each chunk's K8 launches and lane-iterations are recorded."""
+    """Rank function of phases 20, 21 and 26 (run in each spawned rank):
+    every run (label, code, weight, p, BPConfig kwargs, chunks, batch size,
+    seed, relay retries[, error model]) through ``run_monte_carlo(mesh=)``,
+    with every launch count set to 0 just before it and read just after,
+    the collectives and host syncs it made, and the syndrome audit of its
+    graph-sharded chunks (``auditing_syndromes``; [0, 0] on a data-only
+    mesh).  One chunk per group, so each chunk's K8 launches and
+    lane-iterations are recorded."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"rank": (mesh.rank(DATA_AXIS), mesh.rank(GRAPH_AXIS)),
            "backend": mesh.backend, "device": str(mesh.device)}
     graphs = {}
-    for label, params, weight, p_err, cfg, chunks, batch, seed, relay in runs:
+    for (label, params, weight, p_err, cfg, chunks, batch, seed, relay,
+         *model) in runs:
         if params not in graphs:
-            g = CodeGraphs.build(construct_code(*params))
+            g = graphs_of(params)
             graphs[params] = (g, make_rank_basis_test(g.code, mesh.device))
         g, logical = graphs[params]
         reset_counts()
@@ -1415,6 +1490,7 @@ def mesh_runs(mesh, runs: list) -> dict:
                 g, weight, chunks * batch, p_err, BPConfig(**cfg), seed=seed,
                 batch_size=batch, mesh=mesh, relay_retries=relay,
                 i_minus_p=logical, device=mesh.device,
+                error_model=model[0] if model else "weight",
                 progress=lambda c, nc, cnt, it: per_chunk.append(
                     (it, sharded_step_cuda.launches)))))
         torch.cuda.synchronize()
@@ -1552,13 +1628,20 @@ def mesh_phases() -> int:
         for name in (sharded[1][0], sp):
             check(not any(r[name]["launches"].values()),
                   f"graph-sharded {name} launched {r[name]['launches']}")
-    # per chunk: the data shards' K8 launches x their lanes are the chunk's
-    # lane-iterations, each X and Z loop iteration one launch
+    # per chunk: a lane counts its own iterations, as the data-only run's
+    # kernels do, so the exact decoders' lane-iterations equal the data-only
+    # run's; and no lane runs more than its data shard's X and Z loop
+    # iterations, each one K8 launch
+    for name in (ms, sharded[1][0]):
+        got = [it for it, _ in graph[0][name]["per_chunk"]]
+        want = [it for it, _ in data[0][name]["per_chunk"]]
+        check(got == want, f"graph-sharded {name}: lane-iterations per chunk "
+                           f"{got}, data-only {want}")
     for c, (lane_iters, _) in enumerate(graph[0][ms]["per_chunk"]):
         launched = [int(chunk_k8[(d, 0)][c]) for d in range(SHARDED_DATA)]
-        check(sum(launched) * SHARDED_BATCH == lane_iters,
-              f"chunk {c}: K8 launches {launched} x {SHARDED_BATCH} lanes != "
-              f"{lane_iters} lane-iterations")
+        check(lane_iters <= sum(launched) * SHARDED_BATCH,
+              f"chunk {c}: {lane_iters} lane-iterations exceed K8 launches "
+              f"{launched} x {SHARDED_BATCH} lanes")
     say("mesh", path=f"graph-sharded {ms}", k8_launches_per_chunk=json.dumps(
         {str(k): v.tolist() for k, v in chunk_k8.items()}))
     for r in graph:
@@ -1930,6 +2013,184 @@ def bench_phase(device, smi: str) -> dict:
     check(result["device_kind"] == torch.cuda.get_device_name(device),
           f"bench device_kind {result['device_kind']}")
     return counts
+
+
+# -- phases 26 and 27: the lane-sharded lifted engine, and the examples -------
+
+def cli_ranks(mesh, argv: list) -> dict:
+    """Rank function of phase 26's CLI run: ``harness.cli.main(argv)`` in
+    every rank of the world (the CLI builds its own mesh over the ranks),
+    with every launch count set to 0 just before it and read just after."""
+    reset_counts()
+    rc = cli.main(argv)
+    return {"rc": rc, "launches": read_counts(), "backend": mesh.backend,
+            "device": str(mesh.device)}
+
+
+def single_device(label: str, graphs: CodeGraphs, logical, chunks: int,
+                  seed: int, weight: int, p_err: float, cfg: BPConfig,
+                  error_model: str, kernel: str, device):
+    """The data-only mesh of one data shard on the same samples (the
+    generators of (seed, chunk, data index 0), as ``make_sharded_chunk``
+    draws them), decoded on this card by ``kernel``, which must launch
+    twice a chunk.  Returns (counters, executed lane-iterations, X + Z loop
+    iterations: each chunk's largest lane count, which is the count of a
+    loop that runs until its last lane is done)."""
+    reset_counts()
+    counters = np.zeros(NUM_COUNTERS, dtype=np.int64)
+    lane_iters = loops = 0
+    for c in range(chunks):
+        xe, ze, sx, sz = montecarlo.sample_syndromes(
+            graphs, chunk_generator(seed, c, device, 0), weight, p_err, BATCH,
+            error_model)
+        res = decode_batch(graphs, sx, sz, p_err, cfg)
+        counters += classify_batch(
+            logical, xe, ze, res.decisions_x.to(torch.int32),
+            res.decisions_z.to(torch.int32), res.error_code).cpu().numpy()
+        lane_iters += int(res.iter_samples_x + res.iter_samples_z)
+        loops += int(res.iters_x + res.iters_z)
+    counts = read_counts()
+    check(counts[kernel] == 2 * chunks,
+          f"{label} single-device reference: launches {counts}")
+    return counters, lane_iters, loops
+
+
+def lifted_mesh_phase(device, smi: str) -> dict:
+    """Phase 26: the lane-sharded lifted engine over gloo on the card, and
+    the CLI on a lifted graph mesh.  Returns the launches of the
+    single-device references."""
+    phase("26 lifted graph-sharded")
+    t0 = time.perf_counter()
+    code, G = LIFTED_MESH_CODE, LIFTED_MESH_GRAPH
+    graphs = graphs_of(code)
+    logical = make_rank_basis_test(graphs.code, device)
+    cfgs = {alg: dict(max_iters=LIFTED_MESH_ITERS, algorithm=alg)
+            for alg in ("min-sum", "sum-product")}
+    decodes = [(f"{alg} {code}", code, LIFTED_MESH_WEIGHT, LIFTED_MESH_P,
+                cfg, LIFTED_MESH_CHUNKS, BATCH, 1, 0)
+               for alg, cfg in cfgs.items()]
+    R = LIFTED_MESH_RELAY_RETRIES
+    relay = [(f"{name} {code}", code, LIFTED_MESH_WEIGHT, LIFTED_MESH_P,
+              cfgs["min-sum"], LIFTED_MESH_RELAY_CHUNKS, BATCH, 2, retries)
+             for name, retries in (("relay base", 0), (f"relay {R}", R),
+                                   (f"relay {R} again", R))]
+    ranks = run_world(f"data=1 x graph={G}", 1, G, decodes + relay)
+    launches = {}
+    for name, _, weight, p_err, cfg, chunks, batch, seed, _ in decodes:
+        kernel = ("lifted_min_sum" if cfg["algorithm"] == "min-sum"
+                  else "lifted_bp")
+        want, want_iters, loop = single_device(
+            name, graphs, logical, chunks, seed, weight, p_err,
+            BPConfig(**cfg), "weight", kernel, device)
+        launches[kernel] = 2 * chunks
+        got = ranks[0][name]["counters"]
+        got_iters = ranks[0][name]["lane_iters"]
+        equal = bool(np.array_equal(got, want)) and got_iters == want_iters
+        say("gate", path=f"lifted graph-sharded {name}",
+            counters=json.dumps([int(c) for c in got]), lane_iters=got_iters,
+            single_device=json.dumps([int(c) for c in want]),
+            single_device_lane_iters=want_iters, single_device_kernel=kernel,
+            equal=equal)
+        check(equal, f"{name}: lane-sharded counters or lane-iterations "
+                     f"differ from the single-device decode's ({kernel})")
+        for r in ranks:
+            counts = r[name]["launches"]
+            check(not any(counts.values()),
+                  f"lane-sharded {name} launched {counts}")
+            c = r[name]["collectives"]
+            say("mesh", path=f"lifted graph-sharded {name}",
+                rank=json.dumps(r["rank"]), loop_iterations=loop,
+                all_gathers=c["all_gather"], all_reduces=c["all_reduce"],
+                all_gathers_per_iteration=f"{c['all_gather'] / loop:.4f}",
+                seconds=f"{r[name]['seconds']:.3f}")
+            # two per iteration, three a graph a chunk (the decisions'
+            # to_var, the re-encode, the decisions' gather)
+            check(c["all_gather"] == 2 * loop + 6 * chunks,
+                  f"{name}: {c['all_gather']} all_gathers for {loop} "
+                  f"iterations")
+    base, relayed, again = (ranks[0][run[0]]["counters"] for run in relay)
+    say("relay", path=f"lifted graph-sharded {code}", retries=R,
+        samples=int(base[C_TESTED]), bp_failures=bp_failures(base),
+        unrepaired=bp_failures(relayed),
+        cut=f"{LIFTED_MESH_RELAY_CHUNKS} chunk(s) of {BATCH}, not "
+            f"{LIFTED_MESH_CHUNKS}")
+    check(np.array_equal(relayed, again), "lifted relay is not deterministic")
+    check(relayed[C_TESTED] == base[C_TESTED], "lifted relay tested counts")
+    check(bp_failures(base) > 0, "lifted relay: no failure to repair")
+    check(bp_failures(relayed) <= bp_failures(base),
+          "lifted relay added syndrome failures")
+
+    # the CLI on a lifted graph mesh, against the data-only run of one shard
+    gross = graphs_of(GROSS)
+    with tempfile.TemporaryDirectory(prefix="qec-lifted-cli-") as tmp:
+        res = f"{tmp}/gross"
+        argv = ["--code", f"bb:{GROSS}", "--error_model", "depolarizing",
+                "--p_values", str(GROSS_P),
+                "--count", str(LIFTED_CLI_CHUNKS * BATCH),
+                "--batch_size", str(BATCH), "--max", str(MAX_ITERS),
+                "--seed", "9", "--num_graph", str(LIFTED_CLI_GRAPH),
+                f"--results_dir={res}", f"--log_file={tmp}/gross.txt"]
+        cli_out = spawn_on_card(cli_ranks, 1, LIFTED_CLI_GRAPH, argv)
+        check(all(r["rc"] == 0 for r in cli_out), "lifted CLI exit codes")
+        (rec,) = cli_records(res, gross.code, 1, GROSS_P)
+        got = say_point(f"CLI sum-product gross num_graph={LIFTED_CLI_GRAPH}",
+                        1, GROSS_P, rec, smi)
+    want, _, _ = single_device("CLI gross", gross,
+                               make_rank_basis_test(gross.code, device),
+                               LIFTED_CLI_CHUNKS, 9, 1, GROSS_P,
+                               BPConfig(max_iters=MAX_ITERS), "depolarizing",
+                               "lifted_bp", device)
+    # the counters a result record carries
+    fields = sorted(RECORD_FIELDS)
+    equal = bool(np.array_equal(got[fields], want[fields]))
+    say("gate", path=f"CLI bb:{GROSS} num_graph={LIFTED_CLI_GRAPH}",
+        record=json.dumps([int(c) for c in got[fields]]),
+        data_only=json.dumps([int(c) for c in want[fields]]), equal=equal,
+        launches=json.dumps([{k: v for k, v in r["launches"].items() if v}
+                             for r in cli_out]))
+    check(equal, "lifted CLI counters differ from the data-only run's")
+    say("phase26", seconds=f"{time.perf_counter() - t0:.2f}",
+        card=json.dumps(smi))
+    return launches
+
+
+def examples_phase(smi: str) -> dict:
+    """Phase 27: each example's ``main`` on the card, with every launch
+    count set to 0 just before it and read just after; the graph demo at
+    (data=2 x graph=2), cut from its default (data=4 x graph=2) to four
+    ranks on the one card, its ranks reporting their own launches."""
+    phase("27 examples")
+    out = {}
+    for name, module, kernels in (
+            ("quickstart", quickstart, ("bp_sum_product",)),
+            ("bicycle_demo", bicycle_demo, ("lifted_min_sum",)),
+            ("quality_pipeline", quality_pipeline,
+             ("layered_min_sum", "min_sum"))):
+        reset_counts()
+        t0 = time.perf_counter()
+        module.main(["--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        out[name] = counts = read_counts()
+        say("example", name=name, seconds=f"{seconds:.2f}",
+            launches=json.dumps({k: v for k, v in counts.items() if v}),
+            card=json.dumps(smi))
+        for kernel in kernels:
+            check(counts[kernel] > 0, f"{name}: {kernel} not launched")
+    t0 = time.perf_counter()
+    demo = graph_parallel_demo.main(["--device", "cuda", "--num-data", "2",
+                                     "--num-graph", "2"])
+    out["graph_parallel_demo"] = {m: demo[m]["launches"]
+                                  for m in ("data", "graph")}
+    say("example", name="graph_parallel_demo",
+        seconds=f"{time.perf_counter() - t0:.2f}",
+        cut="data=2 x graph=2 (4 ranks), not data=4 x graph=2",
+        launches=json.dumps(out["graph_parallel_demo"]), card=json.dumps(smi))
+    check(all(r["sharded_min_sum_step"] > 0 and r["min_sum"] == 0
+              for r in demo["graph"]["launches"]),
+          "graph demo: the graph mesh did not run K8 alone")
+    check(all(r["min_sum"] > 0 for r in demo["data"]["launches"]),
+          "graph demo: the data mesh did not run K2")
+    return out
 
 
 def main() -> int:
@@ -2374,8 +2635,13 @@ def main() -> int:
     cli_phase(smi)
     quality_mesh_phases(device, g610, logical_610, smi)
     bench_phase(device, smi)
+    lifted_mesh_phase(device, smi)
+    examples_phase(smi)
     phase(None)
     check("jax" not in sys.modules, "the port imported jax")
+    left = descendants()
+    say("processes", outliving_their_phases=len(left))
+    check(not left, f"processes outlived their phases: {json.dumps(left)}")
 
     say("total", seconds=f"{time.perf_counter() - started:.2f}")
     print(smi, flush=True)

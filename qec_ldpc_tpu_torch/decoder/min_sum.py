@@ -188,6 +188,11 @@ def _min_sum_loop(graph, syndrome, prior_llr, max_iters, check_every,
         damping = damping.to(torch.float32)
     done = torch.zeros(batch, dtype=torch.bool, device=device)
     lane_iters = torch.zeros(batch, dtype=torch.int32, device=device)
+    # a lane-sharded graph (parallel/lifted_sharded.py) merges the mask and
+    # the continue flag over its graph group, so every rank of the group
+    # runs the loop in lockstep, as its in-loop collectives require
+    combine_mask = getattr(graph, "combine_lane_mask", None)
+    combine_cont = getattr(graph, "combine_continue", None)
     all_done = False
     n = 0
     while n < max_iters and not all_done:
@@ -198,7 +203,13 @@ def _min_sum_loop(graph, syndrome, prior_llr, max_iters, check_every,
         v = torch.where(done[None, :], v, v_new)
         lane_iters += ~done
         if n % check_every == 0:
-            done = done | ~_not_converged_mask_llr(v, band)
-            all_done = bool(done.all())
+            mask = _not_converged_mask_llr(v, band)
+            if combine_mask is not None:
+                mask = combine_mask(mask)
+            done = done | ~mask
+            cont = not bool(done.all())
+            if combine_cont is not None:
+                cont = combine_cont(cont)
+            all_done = not cont
         n += 1
     return v, torch.full((), n, dtype=torch.int32, device=device), lane_iters

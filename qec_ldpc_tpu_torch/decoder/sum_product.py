@@ -199,6 +199,9 @@ def _bp_loop(graph, syndrome, prior, max_iters, check_every, conv_low,
     v = prior.expand(graph.num_edges, batch).clone()
     done = torch.zeros(batch, dtype=torch.bool, device=device)
     lane_iters = torch.zeros(batch, dtype=torch.int32, device=device)
+    # the lane-sharded graph's hooks, as in decoder/min_sum.py
+    combine_mask = getattr(graph, "combine_lane_mask", None)
+    combine_cont = getattr(graph, "combine_continue", None)
     all_done = False
     n = 0
     while n < max_iters and not all_done:
@@ -207,7 +210,13 @@ def _bp_loop(graph, syndrome, prior, max_iters, check_every, conv_low,
         v = torch.where(done[None, :], v, v_new)
         lane_iters += ~done
         if n % check_every == 0:
-            done = done | ~_not_converged_mask(v, conv_low, conv_high)
-            all_done = bool(done.all())
+            mask = _not_converged_mask(v, conv_low, conv_high)
+            if combine_mask is not None:
+                mask = combine_mask(mask)
+            done = done | ~mask
+            cont = not bool(done.all())
+            if combine_cont is not None:
+                cont = combine_cont(cont)
+            all_done = not cont
         n += 1
     return v, torch.full((), n, dtype=torch.int32, device=device), lane_iters

@@ -84,6 +84,11 @@ def library(build_dir: Path = BUILD_DIR, compiler: str = COMPILER) -> ctypes.CDL
         ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
         ctypes.POINTER(ctypes.c_uint64), ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8)]
+    lib.qec_gf2_matvec.restype = None
+    lib.qec_gf2_matvec.argtypes = [
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8)]
     return lib
 
 
@@ -108,6 +113,25 @@ def unpack_rows(packed: np.ndarray, cols: int) -> np.ndarray:
     as_bytes = np.ascontiguousarray(packed).view(np.uint8).reshape(rows, -1)
     bits = np.unpackbits(as_bytes, axis=1, bitorder="little")
     return bits[:, :cols]
+
+
+def gf2_matvec(m: np.ndarray, vecs: np.ndarray) -> np.ndarray:
+    """Batched mod-2 matvec on packed rows (``qec_gf2_matvec``): the 0/1
+    matrix (rows, cols) times the 0/1 vectors (batch, cols) -> (rows, batch)
+    uint8."""
+    if np.shape(m)[1] != np.shape(vecs)[1]:
+        raise ValueError(f"matrix {np.shape(m)} and vectors {np.shape(vecs)} "
+                         f"differ in columns")
+    lib = library()
+    pm, words = pack_rows(m)
+    pv, _ = pack_rows(vecs)
+    rows, batch = pm.shape[0], pv.shape[0]
+    out = np.zeros((rows, batch), dtype=np.uint8)
+    lib.qec_gf2_matvec(
+        pm.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), rows, words,
+        pv.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), batch,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return out
 
 
 def osd_batch(

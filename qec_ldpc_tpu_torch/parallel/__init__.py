@@ -1,8 +1,10 @@
 """Monte-Carlo drivers (PyTorch), the OSD quality mode included, and the
 multi-device engines: the (data, graph) mesh, data-parallel runs and the
-graph-sharded circulant engines."""
+graph-sharded engines: block columns of circulant codes, lift-group lanes
+of lifted codes."""
 
 from qec_ldpc_tpu_torch.parallel.graph_sharded import make_graph_sharded_decoder
+from qec_ldpc_tpu_torch.parallel.lifted_sharded import make_lifted_sharded_decoder
 from qec_ldpc_tpu_torch.parallel.mc_graph import (
     make_graph_sharded_arrays_chunk,
     make_graph_sharded_chunk,

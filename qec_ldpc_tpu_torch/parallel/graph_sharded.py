@@ -19,7 +19,9 @@ tensors built from its (B, Lc) exponent sub-table (:class:`ShardRouter`).
 
 Every rank of a graph group holds the same syndromes and reads the same
 loop-exit flag (a max over ``graph``), so the group runs its loops in
-lockstep, as the all_gathers require.  Per decode:
+lockstep, as the all_gathers require.  Each loop also counts the
+iterations every lane ran before it was done; :func:`lane_iterations` says
+which count a decode reports.  Per decode:
 
   * min-sum — the cross-shard reductions (min, +-1 product) are exact under
     any association, so it is bit for bit the single-device decode.  The
@@ -31,8 +33,8 @@ lockstep, as the all_gathers require.  Per decode:
   * sum-product — the cross-shard product reassociates the single-device
     one, so it agrees statistically; it is bit for bit the JAX engine.
 
-Only circulant graphs: the lane-sharded lifted engine is not ported (ROADMAP
-queue 1 item 12b).
+Only circulant graphs: lifted codes shard their lift group's lanes instead
+(``parallel/lifted_sharded.py``).
 """
 
 from __future__ import annotations
@@ -66,9 +68,6 @@ from qec_ldpc_tpu_torch.decoder.sum_product import (
 )
 from qec_ldpc_tpu_torch.kernels import sharded_step_cuda
 from qec_ldpc_tpu_torch.parallel.mesh import GRAPH_AXIS, Mesh
-
-#: where the lifted engine waits
-LIFTED_ITEM = "ROADMAP queue 1 item 12b"
 
 
 class ShardRouter:
@@ -161,6 +160,19 @@ def _other_from_partials(mesh: Mesh, part: torch.Tensor) -> torch.Tensor:
     return torch.cat([omin, osgn])
 
 
+def lane_iterations(lane_iters: torch.Tensor, n: int) -> torch.Tensor:
+    """The (batch,) executed iterations a graph-sharded decode reports for
+    a loop of ``n`` iterations whose lanes ran ``lane_iters`` each before
+    they were done: on a card each lane's own count, as the single-device
+    kernels count (K1-K6 exit per lane), so a graph mesh reports what a
+    data-only mesh of the same samples does; on the CPU the loop's count
+    for every lane, as the plain single-device path and JAX's XLA loops
+    do."""
+    if lane_iters.is_cuda:
+        return lane_iters
+    return torch.full_like(lane_iters, n)
+
+
 def _graph_any(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
     """(batch,) bool: ``local`` on any rank of the graph group (a max)."""
     return mesh.all_reduce(local.to(torch.int32), "max", GRAPH_AXIS) > 0
@@ -170,7 +182,8 @@ def _sharded_min_sum(mesh: Mesh, router: ShardRouter, syndrome: torch.Tensor,
                      llr: float, cfg: BPConfig,
                      damping: torch.Tensor | None = None):
     """Flooding normalized min-sum over the shard's columns.  Returns
-    ``(v (Lc*B*P, batch) check-indexed LLRs, iterations)``.
+    ``(v (Lc*B*P, batch) check-indexed LLRs, iterations, per-lane executed
+    iterations)``.
 
     Undamped, an iteration is one all_gather of the partials, the combine
     and one K8 step, which also forms the next partials.  Damped (relay),
@@ -183,6 +196,7 @@ def _sharded_min_sum(mesh: Mesh, router: ShardRouter, syndrome: torch.Tensor,
     v = torch.full((router.Lc * router.B * router.P, bt), llr,
                    dtype=torch.float32, device=syndrome.device)
     done = torch.zeros(bt, dtype=torch.bool, device=syndrome.device)
+    lane_iters = torch.zeros(bt, dtype=torch.int32, device=syndrome.device)
     part = sharded_step_cuda.local_partials(v, router.Lc)
     n, all_done = 0, False
     while n < cfg.max_iters and not all_done:
@@ -197,18 +211,20 @@ def _sharded_min_sum(mesh: Mesh, router: ShardRouter, syndrome: torch.Tensor,
                 router, llr, last, syn_sign, other, v, cfg.min_sum_alpha)
             v = torch.where(done[None, :], v, damped_blend(damping, v, v_new))
             part = sharded_step_cuda.local_partials(v, router.Lc)
+        lane_iters += ~done
         if n % cfg.check_every == 0:
             done = done | ~_graph_any(mesh, _not_converged_mask_llr(v, band))
             all_done = bool(done.all())
         n += 1
-    return v, n
+    return v, n, lane_iters
 
 
 def _sharded_layered(mesh: Mesh, router: ShardRouter, syndrome: torch.Tensor,
                      llr: float, cfg: BPConfig):
     """Layered normalized min-sum over the shard's columns: per block row b
     (layer) one packed all_gather of its (min; sign) partials, B per sweep.
-    Returns ``(q (Lc*P, batch) var-indexed posteriors, sweeps)``."""
+    Returns ``(q (Lc*P, batch) var-indexed posteriors, sweeps, per-lane
+    executed sweeps)``."""
     B, P, Lc = router.B, router.P, router.Lc
     bt = syndrome.shape[-1]
     alpha = f32(cfg.min_sum_alpha)
@@ -261,23 +277,26 @@ def _sharded_layered(mesh: Mesh, router: ShardRouter, syndrome: torch.Tensor,
         return (gsign == syn_sign.view(B, P, bt)).all(dim=1).all(dim=0)
 
     ce = cfg.layered_check_every
+    lane_iters = torch.zeros(bt, dtype=torch.int32, device=syndrome.device)
     n, all_done = 0, False
     while n < cfg.max_iters and not all_done:
         q_new, r_new = sweep(q, r)
         q = torch.where(done[None, :], q, q_new)
         r = torch.where(done[None, :], r, r_new)
+        lane_iters += ~done
         if n % ce == ce - 1:
             done = done | satisfied(q)
             all_done = bool(done.all())
         n += 1
-    return q, n
+    return q, n, lane_iters
 
 
 def _sharded_bp(mesh: Mesh, router: ShardRouter, syndrome: torch.Tensor,
                 prior: np.float32, cfg: BPConfig):
     """Flooding sum-product over the shard's columns: one all_gather of the
     per-check partial products per iteration.  Returns ``(v (Lc*B*P,
-    batch) check-indexed probabilities, iterations)``."""
+    batch) check-indexed probabilities, iterations, per-lane executed
+    iterations)``."""
     B, P, Lc = router.B, router.P, router.Lc
     bt = syndrome.shape[-1]
     device = syndrome.device
@@ -315,16 +334,18 @@ def _sharded_bp(mesh: Mesh, router: ShardRouter, syndrome: torch.Tensor,
             outs.append(num / fma_f32(1.0 - prior_t, prod_m, num))
         return router.to_check(torch.stack(outs, dim=1).reshape(-1, bt))
 
+    lane_iters = torch.zeros(bt, dtype=torch.int32, device=device)
     n, all_done = 0, False
     while n < cfg.max_iters and not all_done:
         v_new = vn(cn(v), last=(n == cfg.max_iters - 1))
         v = torch.where(done[None, :], v, v_new)
+        lane_iters += ~done
         if n % cfg.check_every == 0:
             nc = _not_converged_mask(v, cfg.conv_low, cfg.conv_high)
             done = done | ~_graph_any(mesh, nc)
             all_done = bool(done.all())
         n += 1
-    return v, n
+    return v, n, lane_iters
 
 
 def _reencode_mismatch(mesh: Mesh, router: ShardRouter,
@@ -345,7 +366,8 @@ def _decode_one_graph_sharded(mesh: Mesh, router: ShardRouter,
                               cfg: BPConfig, want_soft: bool = False):
     """Local decisions and flags for one graph: ``(decisions (Lc*P, batch)
     int8 var order, conv_fail (batch,), syn_fail (batch,), iterations,
-    soft)``.  ``soft`` is None unless ``want_soft``; then the local
+    reported lane-iterations (batch,) (:func:`lane_iterations`), soft)``.
+    ``soft`` is None unless ``want_soft``; then the local
     variables' soft outputs (Lc*P, batch) by decoder/decode.py's
     ``edge_soft``, block row 0 first (layered min-sum's posterior q):
     min-sum's and layered min-sum's bit for bit the single-device ones."""
@@ -353,20 +375,20 @@ def _decode_one_graph_sharded(mesh: Mesh, router: ShardRouter,
     bt = syndrome.shape[-1]
     conv_fail = soft = None
     if cfg.algorithm == "layered-min-sum":
-        q, iters = _sharded_layered(mesh, router, syndrome, prior_llr(prior),
-                                    cfg)
+        q, iters, lanes = _sharded_layered(mesh, router, syndrome,
+                                           prior_llr(prior), cfg)
         # layered: "failed to converge" is "the decision violates the
         # syndrome", as in decoder/decode.py
         decisions = (q <= 0.0).reshape(Lc * P, bt)
     elif cfg.algorithm == "min-sum":
-        v, iters = _sharded_min_sum(mesh, router, syndrome, prior_llr(prior),
-                                    cfg)
+        v, iters, lanes = _sharded_min_sum(mesh, router, syndrome,
+                                           prior_llr(prior), cfg)
         vv = router.to_var(v).reshape(Lc, B, P, bt)
         decisions = (vv <= 0.0).any(dim=1).reshape(Lc * P, bt)
         conv_fail = _graph_any(mesh, _not_converged_mask_llr(
             v, np_log_band(cfg.conv_low)))
     else:
-        v, iters = _sharded_bp(mesh, router, syndrome, prior, cfg)
+        v, iters, lanes = _sharded_bp(mesh, router, syndrome, prior, cfg)
         vv = router.to_var(v).reshape(Lc, B, P, bt)
         decisions = (vv >= cfg.hard_threshold).any(dim=1).reshape(Lc * P, bt)
         conv_fail = _graph_any(mesh, _not_converged_mask(v, cfg.conv_low,
@@ -378,7 +400,8 @@ def _decode_one_graph_sharded(mesh: Mesh, router: ShardRouter,
     syn_fail = _reencode_mismatch(mesh, router, decisions, syndrome)
     if conv_fail is None:
         conv_fail = syn_fail
-    return decisions.to(torch.int8), conv_fail, syn_fail, iters, soft
+    return (decisions.to(torch.int8), conv_fail, syn_fail, iters,
+            lane_iterations(lanes, iters), soft)
 
 
 def _relay_one_graph_sharded(mesh: Mesh, router: ShardRouter,
@@ -390,34 +413,39 @@ def _relay_one_graph_sharded(mesh: Mesh, router: ShardRouter,
     """The graph-sharded relay retries (decoder/relay.py's rules): retry r
     damps the rank's own variables by ``gammas(r)`` (Lc*P, batch); a lane
     is repaired when a retry's decision re-encodes to its syndrome.
-    Returns ``(decisions, solved, iterations)``, the last the retries'
-    executed loop iterations.  ``solved`` is the same on every rank of the
-    graph group, so the group takes the same number of retries."""
+    Returns ``(decisions, solved, iterations, lane-iterations)``, the
+    retries' executed loop iterations and their reported lane-iterations
+    (batch,) (:func:`lane_iterations`).  ``solved`` is the same on every
+    rank of the graph group, so the group takes the same number of
+    retries."""
     Lc, P, B = router.Lc, router.P, router.B
     bt = syndrome.shape[-1]
     decisions, solved = decisions0, solved0
     trip_iters, r = 0, 0
+    lanes = torch.zeros(bt, dtype=torch.int32, device=syndrome.device)
     while r < retries and not bool(solved.all()):
         damping = router.expand_vars(gammas(r))
         s_eff = torch.where(solved[None, :], 0, syndrome)
-        v, it = _sharded_min_sum(mesh, router, s_eff, llr, cfg, damping)
+        v, it, lane_iters = _sharded_min_sum(mesh, router, s_eff, llr, cfg,
+                                             damping)
         vv = router.to_var(v).reshape(Lc, B, P, bt)
         d_new = (vv <= 0.0).any(dim=1).reshape(Lc * P, bt).to(decisions.dtype)
         newly = ~_reencode_mismatch(mesh, router, d_new, syndrome) & ~solved
         decisions = torch.where(newly[None, :], d_new, decisions)
         solved = solved | newly
         trip_iters += it
+        lanes = lanes + lane_iterations(lane_iters, it)
         r += 1
-    return decisions, solved, trip_iters
+    return decisions, solved, trip_iters, lanes
 
 
 def routers(mesh: Mesh, graphs: CodeGraphs) -> tuple[ShardRouter, ShardRouter]:
     """This rank's X and Z shard routers; raises unless both graphs are
     circulant and the graph axis divides L."""
     if not isinstance(graphs.x, CirculantGraph):
-        raise NotImplementedError(
-            "graph-sharded decoding of lifted codes (the lane-sharded engine) "
-            f"is not ported yet ({LIFTED_ITEM})")
+        raise ValueError(
+            "the block-column engine is for circulant QC codes; decode "
+            "lifted codes with lifted_sharded.make_lifted_sharded_decoder")
     G, g = mesh.size(GRAPH_AXIS), mesh.rank(GRAPH_AXIS)
     return ShardRouter(graphs.x, G, g), ShardRouter(graphs.z, G, g)
 
@@ -447,7 +475,7 @@ def make_graph_sharded_decoder(mesh: Mesh, graphs: CodeGraphs, cfg: BPConfig):
                                          prior, cfg)
                for router, syn in ((x_router, syndrome_x),
                                    (z_router, syndrome_z))]
-        (dx, cfx, sfx, itx, _), (dz, cfz, sfz, itz, _) = out
+        (dx, cfx, sfx, itx, _, _), (dz, cfz, sfz, itz, _, _) = out
         bt = dx.shape[-1]
         return (mesh.all_gather(dx, GRAPH_AXIS).reshape(-1, bt),
                 mesh.all_gather(dz, GRAPH_AXIS).reshape(-1, bt),

@@ -1,8 +1,8 @@
 """Graph-parallel Monte-Carlo statistics: the (data x graph) mesh chunks
 (PyTorch).
 
-The port of ``qec_ldpc_tpu/parallel/mc_graph.py`` for circulant codes.  Per
-chunk of :func:`make_graph_sharded_chunk`, on every rank:
+The port of ``qec_ldpc_tpu/parallel/mc_graph.py``.  Per chunk of
+:func:`make_graph_sharded_chunk`, on every rank:
 
   sample (data-local, the same on every rank of a graph group) -> full
   syndromes -> graph-sharded X/Z decode (the halo collectives ride the
@@ -14,7 +14,11 @@ generators of (seed, chunk, data index), as in the data-parallel chunk
 (``montecarlo.make_sharded_chunk``), so for the exact decoders (min-sum,
 layered min-sum) the counters equal a data-only mesh's of the same
 ``num_data`` bit for bit; sum-product reassociates the cross-shard products
-and agrees statistically.
+and agrees statistically.  Circulant codes run the block-column engines of
+``parallel/graph_sharded.py``; lifted codes (bivariate bicycle, hypergraph
+product, toric) the lane-sharded engine of ``parallel/lifted_sharded.py``,
+each rank decoding its band of the full syndromes, exact for min-sum and
+sum-product alike.
 
 The quality mode's chunks (:func:`make_graph_sharded_osd_chunk`, and
 :func:`make_graph_sharded_arrays_chunk`, which returns the per-lane arrays)
@@ -26,8 +30,8 @@ layered min-sum give the single-device decode's decisions and soft outputs
 bit for bit.  Relay keeps JAX's per-graph-shard draw: each
 rank damps its own variables from the generator of (seed, chunk, graph
 index), so relay counters are deterministic, not those of ``mesh=None``.
-
-Not ported: the lane-sharded lifted engine (ROADMAP queue 1 item 12b).
+The quality mode's chunks need circulant codes: the lane-sharded engine has
+no soft outputs, as in JAX.
 """
 
 from __future__ import annotations
@@ -41,8 +45,10 @@ from qec_ldpc_tpu_torch.decoder.decode import (
     error_code,
 )
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
+from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
 from qec_ldpc_tpu_torch.decoder.min_sum import prior_llr
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig
+from qec_ldpc_tpu_torch.parallel import lifted_sharded
 from qec_ldpc_tpu_torch.parallel.graph_sharded import (
     _decode_one_graph_sharded,
     _relay_one_graph_sharded,
@@ -78,28 +84,30 @@ def _decode_chunk(mesh: Mesh, routers_xz, cfg: BPConfig, sx: torch.Tensor,
                   relay_retries: int, want_soft: bool = False):
     """Graph-sharded X and Z decode of a data shard's full syndromes
     [-> relay retries drawing from ``draws``]: ``(dx, dz, soft_x, soft_z,
-    error_code, (X, Z) loop iterations)``, the decisions and soft outputs
-    gathered over ``graph`` in global variable order (soft None unless
-    ``want_soft``)."""
+    error_code, (X, Z) loop iterations, (X, Z) reported lane-iterations)``,
+    the last 0-dim int64 tensors (``graph_sharded.lane_iterations``), the
+    decisions and soft outputs gathered over ``graph`` in global variable
+    order (soft None unless ``want_soft``)."""
     prior = np.float32(cfg.prior_factor) * np.float32(error_probability)
     out = []
     for k, router, syn in ((0, routers_xz[0], sx), (1, routers_xz[1], sz)):
-        d, cf, sf, it, soft = _decode_one_graph_sharded(mesh, router, syn,
-                                                        prior, cfg, want_soft)
+        d, cf, sf, it, lanes, soft = _decode_one_graph_sharded(
+            mesh, router, syn, prior, cfg, want_soft)
         if draws is not None:
             gammas = draws.gammas(k, router.Lc * router.P, syn.shape[-1])
-            d, solved, extra = _relay_one_graph_sharded(
+            d, solved, extra, extra_lanes = _relay_one_graph_sharded(
                 mesh, router, syn, prior_llr(prior), cfg, gammas, d, ~sf,
                 relay_retries)
-            sf, it = ~solved, it + extra
+            sf, it, lanes = ~solved, it + extra, lanes + extra_lanes
         # rank g owns block columns [g*Lc, (g+1)*Lc): the gathered shards
         # are the global variable order
         d, soft = (None if a is None else
                    mesh.all_gather(a, GRAPH_AXIS).reshape(-1, syn.shape[-1])
                    for a in (d, soft))
-        out.append((d, soft, cf, sf, it))
-    (dx, softx, cfx, sfx, itx), (dz, softz, cfz, sfz, itz) = out
-    return dx, dz, softx, softz, error_code(sfx, sfz, cfx, cfz), (itx, itz)
+        out.append((d, soft, cf, sf, it, lanes.sum(dtype=torch.int64)))
+    (dx, softx, cfx, sfx, itx, lx), (dz, softz, cfz, sfz, itz, lz) = out
+    return (dx, dz, softx, softz, error_code(sfx, sfz, cfx, cfz), (itx, itz),
+            (lx, lz))
 
 
 def make_graph_sharded_chunk(mesh: Mesh, graphs: CodeGraphs, weight: int,
@@ -109,35 +117,53 @@ def make_graph_sharded_chunk(mesh: Mesh, graphs: CodeGraphs, weight: int,
     """This rank's (data x graph)-sharded chunk group, with the contract of
     ``montecarlo.make_sharded_chunk``: ``chunk_fn(i_minus_p, seed,
     error_probability, chunk_ids, *, device)`` returns the group's
-    (counters, iters[2]) summed over the data axis.  ``batch_per_device``
-    counts samples per data shard (every graph shard works on the same
-    samples).  ``relay_retries > 0`` repairs failed lanes with graph-sharded
-    damped retries, each rank drawing the damping of its own variables from
-    ``relay_draws(seed, chunk, device, data index, graph index)``."""
+    (counters, iters[2]) summed over the data axis, ``iters`` the executed
+    X and Z lane-iterations (``graph_sharded.lane_iterations``: on a card
+    each lane's own count, as a data-only mesh's kernels count).
+    ``batch_per_device`` counts samples per data shard (every graph shard
+    works on the same samples).  ``relay_retries > 0`` repairs failed lanes with graph-sharded
+    damped retries, each rank drawing the damping of its own variables (a
+    lifted code: its band) from ``relay_draws(seed, chunk, device, data
+    index, graph index)``.  Circulant codes need G | L; lifted codes one
+    check block per graph and G | l (``lifted_sharded.adapters``)."""
     _reject_unsupported_pallas(graphs, cfg)
     if mesh.size(GRAPH_AXIS) <= 1:
         raise ValueError("graph axis has size 1; use make_sharded_chunk")
-    x_router, z_router = routers(mesh, graphs)
+    if isinstance(graphs.x, CirculantGraph):
+        routers_xz = routers(mesh, graphs)
+
+        def decode(sx, sz, error_probability, draws):
+            dx, dz, _, _, code, _, lanes = _decode_chunk(
+                mesh, routers_xz, cfg, sx, sz, error_probability, draws,
+                relay_retries)
+            return dx, dz, code, lanes
+    elif isinstance(graphs.x, LiftedGraph):
+        adapters_xz = lifted_sharded.adapters(mesh, graphs, cfg)
+
+        def decode(sx, sz, error_probability, draws):
+            dx, dz, code, _, lanes = lifted_sharded.decode_full(
+                adapters_xz, cfg, sx, sz, error_probability, draws,
+                relay_retries)
+            return dx, dz, code, lanes
+    else:
+        raise ValueError(f"unsupported graph type {type(graphs.x)!r}")
     didx, gidx = mesh.rank(DATA_AXIS), mesh.rank(GRAPH_AXIS)
 
     def chunk_fn(i_minus_p, seed, error_probability, chunk_ids, *, device):
         device = torch.device(device)
         counters = torch.zeros(NUM_COUNTERS, dtype=torch.int64, device=device)
-        lane_iters = np.zeros(2, dtype=np.int64)
+        lane_iters = torch.zeros(2, dtype=torch.int64, device=device)
         for c in chunk_ids:
             xe, ze, sx, sz = sample_syndromes(
                 graphs, chunk_generator(seed, c, device, didx), weight,
                 error_probability, batch_per_device, error_model)
             draws = (relay_draws(seed, c, device, didx, gidx)
                      if relay_retries > 0 else None)
-            dx, dz, _, _, code, its = _decode_chunk(
-                mesh, (x_router, z_router), cfg, sx, sz, error_probability,
-                draws, relay_retries)
+            dx, dz, code, lanes = decode(sx, sz, error_probability, draws)
             counters += classify_batch(i_minus_p, xe, ze, dx.to(torch.int32),
                                        dz.to(torch.int32), code)
-            lane_iters += np.asarray(its) * batch_per_device
-        iters = torch.from_numpy(lane_iters).to(device)
-        return reduce_over_data(mesh, counters, iters)
+            lane_iters += torch.stack(lanes)
+        return reduce_over_data(mesh, counters, lane_iters)
 
     return chunk_fn
 
@@ -170,19 +196,18 @@ def _soft_decode_shard(mesh: Mesh, graphs: CodeGraphs, lanes: slice,
     ``relay_draws(seed, chunk, device, graph index)``].  Returns the shard's
     ``(xe, ze, sx, sz, DecodeResult)``, decisions and soft outputs in
     global variable order and ``iter_samples_*`` the shard's executed
-    lane-iterations (loop iterations x lanes)."""
+    lane-iterations (``graph_sharded.lane_iterations``)."""
     xe, ze, sx, sz = sample_syndromes(
         graphs, chunk_generator(seed, chunk, device), weight,
         error_probability, batch, error_model, lanes=lanes)
     draws = (relay_draws(seed, chunk, device, mesh.rank(GRAPH_AXIS))
              if relay_retries > 0 else None)
-    dx, dz, softx, softz, code, (itx, itz) = _decode_chunk(
+    dx, dz, softx, softz, code, (itx, itz), (isx, isz) = _decode_chunk(
         mesh, routers_xz, cfg, sx, sz, error_probability, draws,
         relay_retries, want_soft=True)
     # filled on the device: a tensor built from host values would block
-    ix, iz, isx, isz = (torch.full((), v, dtype=torch.int64, device=device)
-                        for v in (itx, itz, itx * sx.shape[-1],
-                                  itz * sx.shape[-1]))
+    ix, iz = (torch.full((), v, dtype=torch.int64, device=device)
+              for v in (itx, itz))
     res = DecodeResult(decisions_x=dx, decisions_z=dz, error_code=code,
                        iters_x=ix, iters_z=iz, iter_samples_x=isx,
                        iter_samples_z=isz, soft_x=softx, soft_z=softz)
@@ -205,8 +230,10 @@ def make_graph_sharded_arrays_chunk(mesh: Mesh, graphs: CodeGraphs,
     batch, gathered over ``data``.  Min-sum's and layered min-sum's
     decisions and soft outputs equal the single-device decode's bit for
     bit.  Circulant codes only (the lifted engine has no soft outputs).
-    Iteration totals are each data shard's loop count x its lanes, summed
-    (the maximum for ``iters_*``): they depend on the partition."""
+    ``iters_*`` are the data shards' largest loop count, ``iter_samples_*``
+    the sum of their reported lane-iterations
+    (``graph_sharded.lane_iterations``; on the CPU loop count x lanes,
+    which depends on the partition)."""
     lanes, routers_xz = _check_graph_osd_mesh(mesh, graphs, cfg, batch)
 
     def chunk_fn(seed, chunk, error_probability, *, device):
@@ -218,13 +245,13 @@ def make_graph_sharded_arrays_chunk(mesh: Mesh, graphs: CodeGraphs,
             gather_lanes(mesh, a) for a in (xe, ze, sx, sz, res.decisions_x,
                                             res.decisions_z, res.soft_x,
                                             res.soft_z, res.error_code))
-        its = mesh.all_gather(torch.stack([res.iters_x, res.iters_z]),
-                              DATA_AXIS)
-        bpd = res.error_code.shape[-1]
+        its = mesh.all_gather(torch.stack([
+            res.iters_x, res.iters_z, res.iter_samples_x,
+            res.iter_samples_z]), DATA_AXIS)
         res = DecodeResult(decisions_x=dx, decisions_z=dz, error_code=code,
                            iters_x=its[:, 0].max(), iters_z=its[:, 1].max(),
-                           iter_samples_x=its[:, 0].sum() * bpd,
-                           iter_samples_z=its[:, 1].sum() * bpd,
+                           iter_samples_x=its[:, 2].sum(),
+                           iter_samples_z=its[:, 3].sum(),
                            soft_x=softx, soft_z=softz)
         return (*(a.to(torch.int8) for a in (xe, ze, sx, sz)), res)
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 import datetime
 import multiprocessing
 import os
+from multiprocessing import resource_tracker
 import tempfile
 import time
 import traceback
@@ -162,6 +163,22 @@ def _rank_main(rank: int, world: int, num_data: int, num_graph: int,
         raise
 
 
+def _stop_resource_tracker() -> None:
+    """Stop multiprocessing's resource tracker if this process started it
+    (the spawn context does, with the first rank) and wait for it to exit.
+    Left alone it would end only once it reads EOF after this process has
+    exited, so it outlives its parent; the next world starts a new one."""
+    tracker = resource_tracker._resource_tracker
+    stop = getattr(tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    elif tracker._fd is not None and tracker._pid is not None:
+        # Python releases without ResourceTracker._stop: what it does
+        os.close(tracker._fd)
+        os.waitpid(tracker._pid, 0)
+        tracker._fd = tracker._pid = None
+
+
 def spawn(fn: Callable, num_data: int, num_graph: int = 1, *,
           device_type: str = "cuda", args: tuple = (),
           timeout: float = 600.0) -> list:
@@ -175,7 +192,9 @@ def spawn(fn: Callable, num_data: int, num_graph: int = 1, *,
     of an importable module and return what ``torch.save`` can write
     (CPU tensors, NumPy arrays, Python values).  If any rank fails or the
     world outlives ``timeout`` seconds, every rank is stopped and this
-    raises with the failed ranks' tracebacks."""
+    raises with the failed ranks' tracebacks.  No process started here
+    outlives the call: the ranks are joined (or killed), and so is the
+    resource tracker that the spawn context starts with them."""
     world = num_data * num_graph
     backend = choose_backend(device_type, world)
     ctx = multiprocessing.get_context("spawn")
@@ -202,6 +221,7 @@ def spawn(fn: Callable, num_data: int, num_graph: int = 1, *,
                 if p.is_alive():
                     p.kill()
                     p.join()
+            _stop_resource_tracker()
         codes = [p.exitcode for p in procs]
         if any(c != 0 for c in codes):
             errors = "".join(

@@ -12,14 +12,18 @@ classification lattice:
 The GF(2) products are float32 matmuls of 0/1 values, exact while sums stay
 below 2^24 provided the matmul runs in full float32: on a GPU keep
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default).
+:func:`classify_batch_np` is the host (NumPy) mirror, whose logical test
+runs through the packed GF(2) matvec of the port's host library (native/).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from qec_ldpc_tpu_torch import native
 from qec_ldpc_tpu_torch.codes import gf2_rref
 from qec_ldpc_tpu_torch.decoder.decode import (
     CONVERGENCE_FAIL_X,
@@ -143,3 +147,56 @@ def classify_batch(
         tested = valid.sum(dtype=torch.int32)
         masks = [m & valid for m in masks]
     return torch.stack([tested, *(m.sum(dtype=torch.int32) for m in masks)])
+
+
+def _host(a) -> np.ndarray:
+    """A tensor (on any device) or array-like as a NumPy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def classify_batch_np(i_minus_p, x_errors, z_errors, x_decoded, z_decoded,
+                      error_code) -> np.ndarray:
+    """Host (NumPy) mirror of :func:`classify_batch`, the same counters as
+    an int64 array, for paths that splice corrections on the host.  Takes
+    arrays or tensors on any device; ``i_minus_p`` a dense (2n x 2n) matrix
+    or a :class:`RankBasisTest`.  The logical test runs through the host
+    library's packed GF(2) matvec (``native.gf2_matvec``)."""
+    x_errors, z_errors = _host(x_errors), _host(z_errors)
+    error_code = _host(error_code)
+    batch = error_code.shape[0]
+    x_tested = (x_errors != 0).any(axis=0)
+    z_tested = (z_errors != 0).any(axis=0)
+    syn_x = (error_code & SYNDROME_FAIL_X) != 0
+    syn_z = (error_code & SYNDROME_FAIL_Z) != 0
+    conv_x = (error_code & CONVERGENCE_FAIL_X) != 0
+    conv_z = (error_code & CONVERGENCE_FAIL_Z) != 0
+    undetected = ~(syn_x | syn_z)
+    residual = np.concatenate(
+        [(x_errors + _host(x_decoded)) % 2,
+         (z_errors + _host(z_decoded)) % 2], axis=0).astype(np.uint8)
+    if isinstance(i_minus_p, RankBasisTest):
+        n = i_minus_p.basis_x.shape[1]
+
+        def sector(basis, pivots, r):
+            basis, pivots = _host(basis), _host(pivots)
+            if basis.shape[0] == 0:
+                return r.astype(bool).any(axis=0)
+            coeff = r[pivots]                      # (rank, batch) 0/1
+            recon = native.gf2_matvec(basis.T, coeff.T)
+            return ((recon ^ r) != 0).any(axis=0)
+
+        logical = (sector(i_minus_p.basis_x, i_minus_p.pivots_x, residual[:n])
+                   | sector(i_minus_p.basis_z, i_minus_p.pivots_z,
+                            residual[n:]))
+    else:
+        logical = native.gf2_matvec(_host(i_minus_p), residual.T).astype(
+            bool).any(axis=0)
+    logical_cnt = undetected & logical
+    corrected_cnt = undetected & ~logical
+    return np.array([
+        batch, x_tested.sum(), z_tested.sum(), corrected_cnt.sum(),
+        syn_x.sum(), syn_z.sum(), logical_cnt.sum(), conv_x.sum(),
+        conv_z.sum(),
+    ], dtype=np.int64)

@@ -16,7 +16,9 @@ PORT_FILES = sorted(p for p in PORT.rglob("*.py") if "_build" not in p.parts) + 
     ROOT / "workloads.py",
     # the rank functions that spawned processes import, and the OSD-0
     # kernel's corner cases, which the card's test run imports
-    ROOT / "tests" / "torch_mesh_workers.py", ROOT / "tests" / "osd0_cases.py"]
+    ROOT / "tests" / "torch_mesh_workers.py", ROOT / "tests" / "osd0_cases.py",
+    # the examples, which use the port alone
+    *sorted((ROOT / "examples_torch").glob("*.py"))]
 KERNEL_MODULES = sorted(p.stem for p in (PORT / "kernels").glob("*.py")
                         if p.stem != "__init__")
 
@@ -37,6 +39,14 @@ def test_import_leaves_jax_out():
             "import qec_ldpc_tpu_torch.kernels.sharded_step_cuda\n"
             "import qec_ldpc_tpu_torch.parallel.mesh, qec_ldpc_tpu_torch.parallel.graph_sharded\n"
             "import qec_ldpc_tpu_torch.parallel.mc_graph\n"
+            "import qec_ldpc_tpu_torch.parallel.lifted_sharded\n"
+            "from qec_ldpc_tpu_torch.parallel import make_lifted_sharded_decoder\n"
+            "from qec_ldpc_tpu_torch.decoder import (checked_decode_batch,\n"
+            "    validate_decode_result, cn_update, vn_update)\n"
+            "from qec_ldpc_tpu_torch.sampling import (classify_batch_np,\n"
+            "    logical_error_mask, logical_error_mask_basis)\n"
+            "import examples_torch.quickstart, examples_torch.bicycle_demo\n"
+            "import examples_torch.quality_pipeline, examples_torch.graph_parallel_demo\n"
             "from qec_ldpc_tpu_torch.parallel import make_mesh, spawn, make_graph_sharded_decoder\n"
             "import tests.torch_mesh_workers\n"
             "import qec_ldpc_tpu_torch.decoder.osd, qec_ldpc_tpu_torch.decoder.osd_device\n"
@@ -112,3 +122,31 @@ def test_scan_covers_the_bench_and_the_quality_chunks():
                  "make_graph_sharded_arrays_chunk",
                  "make_graph_sharded_osd_chunk"):
         assert callable(getattr(parallel, name)), name
+
+
+def test_scan_covers_the_lifted_engine_and_the_examples():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"qec_ldpc_tpu_torch/parallel/lifted_sharded.py",
+            "examples_torch/quickstart.py", "examples_torch/bicycle_demo.py",
+            "examples_torch/quality_pipeline.py",
+            "examples_torch/graph_parallel_demo.py"} <= names
+
+
+# the JAX package's exported names that the port had lacked
+EXPORTS = {"decoder": ("checked_decode_batch", "validate_decode_result",
+                       "cn_update", "vn_update"),
+           "sampling": ("classify_batch_np", "logical_error_mask",
+                        "logical_error_mask_basis"),
+           "parallel": ("make_lifted_sharded_decoder",)}
+
+
+@pytest.mark.parametrize("package,name", [(p, n) for p, names in
+                                          EXPORTS.items() for n in names])
+def test_exports_the_jax_packages_names(package, name):
+    import importlib
+
+    port = importlib.import_module(f"qec_ldpc_tpu_torch.{package}")
+    assert callable(getattr(port, name))
+    assert name in getattr(port, "__all__", [name])
+    jax_init = (ROOT / "qec_ldpc_tpu" / package / "__init__.py").read_text()
+    assert name in jax_init

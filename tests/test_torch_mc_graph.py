@@ -15,7 +15,9 @@ Gloo worlds of (data x graph) = 1x2 and 2x2 CPU ranks run every case
   * relay composes: deterministic, syndrome failures drop, corrected counts
     rise, the retries' work is counted;
   * ``run_monte_carlo(mesh=)`` dispatches on the graph axis;
-  * a lifted code raises ``NotImplementedError`` naming its ROADMAP item.
+  * a lifted code (the toric code) runs through the lane-sharded engine,
+    its chunk and ``run_monte_carlo`` counters equal to the data-only
+    mesh's (``test_torch_lifted_sharded.py`` holds that engine in full).
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 from qec_ldpc_tpu_torch import construct_code
+from qec_ldpc_tpu_torch.codes import toric_code
 from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs
 from qec_ldpc_tpu_torch.parallel.mesh import spawn
 from qec_ldpc_tpu_torch.parallel.montecarlo import _chunk_body, chunk_generator
@@ -125,6 +128,24 @@ def test_run_monte_carlo_dispatches_on_the_graph_axis(world, g42):
 
 @pytest.mark.parametrize("entry", ["chunk", "run"])
 def test_lifted_codes_wait_for_their_roadmap_item(world, entry):
-    _, ranks = world
+    """The lifted engine (ROADMAP queue 1 item 12b) is ported: the toric
+    code's graph-sharded chunk and run equal the data-only mesh's."""
+    nd, ranks = world
+    graphs = toric_code(4).build_graphs()
+    test = make_rank_basis_test(graphs.code, "cpu")
+    cfg = BPConfig(max_iters=20, algorithm="min-sum")
+    counters, iters = np.zeros(9, np.int64), np.zeros(2, np.int64)
+    for c in (0, 1):
+        for d in range(nd):
+            cnt, its = _chunk_body(graphs, test,
+                                   chunk_generator(SEED, c, "cpu", d), 1,
+                                   P_ERR, cfg, 8, "weight")
+            counters += cnt.numpy()
+            iters += its.numpy()
     for r in ranks:
-        assert "item 12b" in r[f"lifted-{entry}"]
+        got, got_iters = r[f"lifted-{entry}"]
+        np.testing.assert_array_equal(got, counters)
+        if entry == "chunk":
+            np.testing.assert_array_equal(got_iters, iters)
+        else:
+            assert got_iters == int(iters.sum())

@@ -10,6 +10,9 @@ the port gave before the mesh existed.  Two small worlds show that a failed
 or hung rank fails the run.
 """
 
+import os
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
@@ -176,3 +179,33 @@ def test_a_hung_rank_fails_the_world():
     with pytest.raises(RuntimeError, match="after the timeout"):
         port_mesh.spawn(torch_mesh_workers.sleeping_rank, 1,
                         device_type="cpu", timeout=4)
+
+
+def child_pids() -> set:
+    """The pids of this process's children, exited but unreaped ones too
+    (the fourth field of /proc/<pid>/stat, after the parenthesised name,
+    is the parent's pid)."""
+    pids = set()
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rpartition(")")[2].split()
+        except OSError:  # exited meanwhile
+            continue
+        if int(fields[1]) == os.getpid():
+            pids.add(int(stat.parent.name))
+    return pids
+
+
+@pytest.mark.parametrize("worker", ["rank_index", "failing_rank"])
+def test_spawn_leaves_no_process(worker):
+    """Every process a world starts, its ranks and multiprocessing's
+    resource tracker, has exited and been reaped when ``spawn`` returns or
+    raises."""
+    before = child_pids()
+    try:
+        ranks = port_mesh.spawn(getattr(torch_mesh_workers, worker), 2,
+                                device_type="cpu", timeout=120)
+        assert ranks == [0, 1]
+    except RuntimeError:
+        assert worker == "failing_rank"
+    assert child_pids() <= before

@@ -1,7 +1,7 @@
 """Rank functions of the port's mesh tests (``test_torch_mesh.py``,
 ``test_torch_graph_sharded.py``, ``test_torch_mc_graph.py``,
 ``test_torch_cli_mesh.py``, ``test_torch_graph_osd.py``,
-``test_torch_graph_soft.py``).
+``test_torch_graph_soft.py``, ``test_torch_lifted_sharded.py``).
 
 ``qec_ldpc_tpu_torch.parallel.mesh.spawn`` runs each in a fresh process per
 rank, which imports this module: it imports neither JAX nor the JAX
@@ -15,11 +15,15 @@ import numpy as np
 import torch
 
 from qec_ldpc_tpu_torch import construct_code
-from qec_ldpc_tpu_torch.codes import toric_code
-from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs
+from qec_ldpc_tpu_torch.codes import known_bicycle_code, toric_code
+from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs, LiftedGraph
 from qec_ldpc_tpu_torch.harness import Journal, load_init_file
 from qec_ldpc_tpu_torch.harness.cli import run_sweep
 from qec_ldpc_tpu_torch.parallel.graph_sharded import make_graph_sharded_decoder
+from qec_ldpc_tpu_torch.parallel.lifted_sharded import (
+    ShardedLiftedGraph,
+    make_lifted_sharded_decoder,
+)
 from qec_ldpc_tpu_torch.parallel.mc_graph import (
     make_graph_sharded_arrays_chunk,
     make_graph_sharded_chunk,
@@ -95,17 +99,115 @@ def mc_graph_cases(mesh, params: tuple, seed: int, p: float) -> dict:
     out["run-collectives"] = {k: mesh.collectives[k] - before[k]
                               for k in before}
     toric = toric_code(4).build_graphs()
-    for label, call in (
-            ("chunk", lambda: make_graph_sharded_chunk(
-                mesh, toric, 1, BPConfig(algorithm="min-sum"), 8)),
-            ("run", lambda: run_monte_carlo(
-                toric, 1, 8, p, BPConfig(algorithm="min-sum"), seed,
-                batch_size=8, mesh=mesh, device="cpu"))):
+    toric_test = make_rank_basis_test(toric.code, "cpu")
+    cfg = BPConfig(max_iters=20, algorithm="min-sum")
+    out["lifted-chunk"] = tuple(t.numpy() for t in make_graph_sharded_chunk(
+        mesh, toric, 1, cfg, 8)(toric_test, seed, p, [0, 1], device="cpu"))
+    out["lifted-run"] = run_monte_carlo(
+        toric, 1, 2 * 8 * mesh.size(DATA_AXIS), p, cfg, seed,
+        batch_size=8 * mesh.size(DATA_AXIS), mesh=mesh, i_minus_p=toric_test,
+        device="cpu")
+    return out
+
+
+def lifted_graphs(spec: str) -> CodeGraphs:
+    """``toric:<d>`` or ``bb:<published label>`` -> the code's graphs."""
+    family, arg = spec.split(":", 1)
+    code = toric_code(int(arg)) if family == "toric" else known_bicycle_code(arg)
+    return code.build_graphs()
+
+
+def _band(a: ShardedLiftedGraph, x: np.ndarray) -> torch.Tensor:
+    """This rank's band of a global (blocks*l*m, batch) array."""
+    bt = x.shape[-1]
+    y = x.reshape(-1, a.l, a.m, bt)[:, a.g * a.lc:(a.g + 1) * a.lc]
+    return torch.from_numpy(np.ascontiguousarray(y.reshape(-1, bt)))
+
+
+def _refusals(mesh) -> dict:
+    """What the lane-sharded decoder refuses, and the block-column
+    decoder's refusal of a lifted code: name -> (type, message)."""
+    bb = lifted_graphs("bb:[[72,12,6]]")
+    two_blocks = LiftedGraph.build(2, 2, (2, 2), [
+        (0, 0, (0, 0)), (0, 1, (0, 1)), (1, 0, (1, 0)), (1, 1, (1, 1))])
+    z_p = LiftedGraph.from_circulant(np.array([[0, 1, 3]]), 7)
+    cases = {
+        "circulant": (CodeGraphs.build(construct_code(3, 3, 6, 7, 2, 3)), {}),
+        "non-product": (CodeGraphs(bb.code, z_p, z_p), {}),
+        "divide": (toric_code(3).build_graphs(), {}),
+        "check-blocks": (CodeGraphs(bb.code, two_blocks, two_blocks), {}),
+        "pallas": (bb, dict(algorithm="min-sum", kernel="pallas")),
+        "return_soft": (bb, dict(return_soft=True)),
+        "layered": (bb, dict(algorithm="layered-min-sum")),
+    }
+    out = {}
+    for name, (graphs, cfg) in cases.items():
         try:
-            call()
-            out[f"lifted-{label}"] = None
-        except NotImplementedError as e:
-            out[f"lifted-{label}"] = str(e)
+            make_lifted_sharded_decoder(mesh, graphs, BPConfig(**cfg))
+            out[name] = None
+        except ValueError as e:
+            out[name] = (type(e).__name__, str(e))
+    try:
+        make_graph_sharded_decoder(mesh, bb, BPConfig())
+        out["block-column"] = None
+    except ValueError as e:
+        out["block-column"] = (type(e).__name__, str(e))
+    decode = make_lifted_sharded_decoder(mesh, bb, BPConfig())
+    s = torch.zeros((bb.x.num_checks, 4), dtype=torch.int32)
+    for name, (sx, sz) in (("shape", (s[:-1], s)), ("batch", (s, s[:, :3]))):
+        try:
+            decode(sx, sz, 0.01)
+            out[name] = None
+        except ValueError as e:
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+def lifted_sharded_cases(mesh, routes: dict, decodes: dict, p: float,
+                         chunks: dict, seed: int, cli_file: str | None) -> dict:
+    """The lane-sharded lifted engine on this (data x graph) mesh:
+
+    * ``routes``: (code spec, "x" or "z") -> (edge rows, variable rows,
+      error bits), global arrays; the adapter's ``to_var``, ``to_check``
+      (both of the edge rows), ``expand_vars`` and ``syndrome`` of this
+      rank's band;
+    * ``decodes``: name -> (code spec, BPConfig kwargs, sx, sz), global
+      syndromes of every data shard; ``make_lifted_sharded_decoder`` on
+      this rank's shard, with the collectives it issued;
+    * the refusals;
+    * ``chunks``: name -> (code spec, BPConfig kwargs, weight, error model,
+      p, lanes per data shard, relay retries); chunks 0 and 1 of
+      ``make_graph_sharded_chunk``;
+    * ``cli_file``: the CLI's records of that init file (None: no CLI
+      run)."""
+    torch.set_num_threads(1)
+    out = {"rank": (mesh.rank(DATA_AXIS), mesh.rank(GRAPH_AXIS))}
+    for (spec, side), (edges, variables, errors) in routes.items():
+        a = ShardedLiftedGraph(getattr(lifted_graphs(spec), side), mesh)
+        out[("route", spec, side)] = {
+            name: fn(_band(a, x)).numpy() for name, fn, x in (
+                ("to_var", a.to_var, edges), ("to_check", a.to_check, edges),
+                ("expand_vars", a.expand_vars, variables),
+                ("syndrome", a.syndrome, errors))}
+    for name, (spec, cfg, sx, sz) in decodes.items():
+        decode = make_lifted_sharded_decoder(mesh, lifted_graphs(spec),
+                                             BPConfig(**cfg))
+        before = dict(mesh.collectives)
+        dx, dz, code, iters = decode(_shard(mesh, sx), _shard(mesh, sz), p)
+        out[name] = dict(dx=dx.numpy(), dz=dz.numpy(), code=code.numpy(),
+                         iters=iters.numpy(),
+                         collectives={k: mesh.collectives[k] - before[k]
+                                      for k in before})
+    out["refusals"] = _refusals(mesh)
+    for name, (spec, cfg, weight, model, p_err, bpd, relay) in chunks.items():
+        graphs = lifted_graphs(spec)
+        fn = make_graph_sharded_chunk(mesh, graphs, weight, BPConfig(**cfg),
+                                      bpd, model, relay)
+        counters, iters = fn(make_rank_basis_test(graphs.code, "cpu"), seed,
+                             p_err, [0, 1], device="cpu")
+        out[("chunk", name)] = (counters.numpy(), iters.numpy())
+    if cli_file is not None:
+        out["cli"] = [s.to_dict() for s in run_sweep(load_init_file(cli_file))]
     return out
 
 
@@ -217,6 +319,11 @@ def graph_osd_cases(mesh, params: tuple, seed: int, p: float,
             seed, 1, p, device="cpu"))
         for alg in ("min-sum", "layered-min-sum", "sum-product")}
     return out
+
+
+def rank_index(mesh) -> int:
+    """This rank's index along ``data``."""
+    return mesh.rank(DATA_AXIS)
 
 
 def failing_rank(mesh) -> None:

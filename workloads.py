@@ -79,6 +79,26 @@ SHARDED_RELAY_REFERENCE_CHUNKS = 16
 K8_BATCHES = (256, SHARDED_BATCH, 2048)
 K8_STEPS = 30  # steps per profiled loop (profile_cells.py --cells k8)
 
+# the lane-sharded lifted engine: the BB cell of
+# benchmarks/large_code_scaling.py:154-177, [[756,16,34]] (lift group
+# Z_21 x Z_18, so G = 3 divides l), weight-24 Pauli errors, p = 0.01,
+# min-sum at most 30 iterations, on a (data=1 x graph=3) mesh, 2048 lanes a
+# chunk (16 there).  Relay (8 retries) runs at the same setting, cut to
+# fewer chunks: gloo stages every halo through the host, and the retries
+# of the lanes that never converge cost 30 iterations each
+LIFTED_MESH_CODE = "[[756,16,34]]"
+LIFTED_MESH_WEIGHT = 24
+LIFTED_MESH_P = 0.01
+LIFTED_MESH_ITERS = 30
+LIFTED_MESH_GRAPH = 3
+LIFTED_MESH_CHUNKS = 4
+LIFTED_MESH_RELAY_RETRIES = 8
+LIFTED_MESH_RELAY_CHUNKS = 1
+# the CLI on a lifted graph mesh: the gross code, depolarizing p = 0.01,
+# sum-product (the CLI's default), num_graph = 2, 4 chunks
+LIFTED_CLI_GRAPH = 2
+LIFTED_CLI_CHUNKS = 4
+
 
 def osd_failed_lanes(graphs, seed: int, device, batch: int,
                      weight: int | None = None, p_err: float | None = None):
