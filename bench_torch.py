@@ -27,7 +27,8 @@ Secondaries, each timed as its best of ``repeats`` runs after one warm-up:
     every lane 100 iterations or 1, and the rate counts the executed
     lane-iterations (X and Z, halved: one iteration-codeword is an X and a
     Z iteration).  Their achieved FLOP/s use bench.py's per-edge counts
-    (18, 15 and 14 per edge and iteration);
+    (18, 15 and 14 per edge and iteration).  The rule and the counts live
+    in ``benchmarks_torch/common.py``, which the benchmark suite shares;
   * the [[42]] code at W=1, p = 0.02, batch 8192 (K1);
   * the gross code [[144,12,12]], min-sum, depolarizing p = 0.01 (K5),
     gated at corrected > 0.99.
@@ -44,14 +45,21 @@ from __future__ import annotations
 
 import json
 import sys
-import time
 
 import torch
 
+from benchmarks_torch.common import (
+    best_of,
+    bp_flops_per_iter_sample,
+    fixed_work_rate,
+    gate,
+    layered_flops_per_sweep_sample,
+    min_sum_flops_per_iter_sample,
+)
 from qec_ldpc_tpu_torch import construct_code
 from qec_ldpc_tpu_torch.codes import known_bicycle_code
 from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs
-from qec_ldpc_tpu_torch.parallel import mc_chunk, run_monte_carlo
+from qec_ldpc_tpu_torch.parallel import run_monte_carlo
 from qec_ldpc_tpu_torch.sampling import C_CORRECTED, C_TESTED, make_rank_basis_test
 
 BASELINE_SAMPLES_PER_S = 887.0       # the reference's headline (bench.py)
@@ -61,43 +69,6 @@ BASELINE_SMALL_CODE_SAMPLES_PER_S = 110_000.0  # [[42]] W=1 p=0.02
 MAX_ITERS = 100
 WEIGHT = 15
 P_ERR = 0.01
-
-
-def _total_edges(graphs: CodeGraphs) -> int:
-    return graphs.x.num_edges + graphs.z.num_edges
-
-
-# bench.py's analytic float operations per iteration (sweep) of one sample,
-# X and Z graphs: a deliberate undercount (no convergence, init or masking)
-def bp_flops_per_iter_sample(graphs: CodeGraphs) -> float:
-    return 18.0 * _total_edges(graphs)
-
-
-def min_sum_flops_per_iter_sample(graphs: CodeGraphs) -> float:
-    return 15.0 * _total_edges(graphs)
-
-
-def layered_flops_per_sweep_sample(graphs: CodeGraphs) -> float:
-    return 14.0 * _total_edges(graphs)
-
-
-def gate(ok: bool, what: str) -> None:
-    if not ok:
-        raise AssertionError(f"bench_torch: {what}")
-
-
-def best_of(run, repeats: int):
-    """(last result, first run's seconds, best of ``repeats`` more); each
-    ``run`` ends in a host read, so its wall clock covers the device work."""
-    t0 = time.perf_counter()
-    result = run()
-    first = time.perf_counter() - t0
-    best = float("inf")
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        result = run()
-        best = min(best, time.perf_counter() - t0)
-    return result, first, best
 
 
 def corrected_fraction(counters) -> float:
@@ -149,35 +120,16 @@ def main(device: str = "cuda", batch: int = 2048, headline_chunks: int = 512,
          f"layered corrected fraction {ly_fraction}")
     layered_samples_per_s = int(ly_counters[C_TESTED]) / best_ly
 
-    # fixed work: a lane stops only where it passes the first iteration's
-    # test, so each graph of a chunk runs batch * 100 - 99 * k
-    # lane-iterations, k the lanes that passed it
-    def fixed_work_rate(algorithm: str) -> float:
-        cfg = BPConfig(max_iters=MAX_ITERS, check_every=MAX_ITERS + 1,
-                       layered_check_every=MAX_ITERS + 1, algorithm=algorithm)
+    # fixed work (benchmarks_torch/common.py's rule)
+    def fixed(algorithm: str) -> float:
+        return fixed_work_rate(graphs, test, algorithm, weight=WEIGHT,
+                               error_probability=P_ERR, max_iters=MAX_ITERS,
+                               batch=batch, chunks=fixed_chunks,
+                               repeats=repeats, device=device)[0]
 
-        def run():
-            counters = torch.zeros(9, dtype=torch.int64, device=device)
-            executed = torch.zeros((), dtype=torch.int64, device=device)
-            off = torch.zeros((), dtype=torch.int64, device=device)
-            for c in range(fixed_chunks):
-                cnt, its = mc_chunk(graphs, test, 0, c, WEIGHT, P_ERR, cfg,
-                                    batch, device=device)
-                counters += cnt
-                executed += its.sum()
-                off += ((MAX_ITERS * batch - its) % (MAX_ITERS - 1)).sum()
-            return torch.cat([counters, executed[None], off[None]]).cpu()
-
-        host, _, best = best_of(run, repeats)
-        gate(int(host[C_TESTED]) == fixed_chunks * batch,
-             f"{algorithm} fixed work tested {int(host[C_TESTED])}")
-        gate(int(host[-1]) == 0,
-             f"{algorithm} fixed work: a lane stopped after a later test")
-        return int(host[-2]) / 2 / best
-
-    iter_samples_per_s = fixed_work_rate("sum-product")
-    ms_iter_per_s = fixed_work_rate("min-sum")
-    ly_iter_per_s = fixed_work_rate("layered-min-sum")
+    iter_samples_per_s = fixed("sum-product")
+    ms_iter_per_s = fixed("min-sum")
+    ly_iter_per_s = fixed("layered-min-sum")
 
     # the [[42]] code: small graphs, where launch overhead shows
     small = CodeGraphs.build(construct_code(3, 3, 6, 7, 2, 3))

@@ -14,9 +14,10 @@ line: the gross code [[144,12,12]], depolarizing p = 0.01.  Fails (non-zero
 exit) if any phase fails:
 
   1. device  needs CUDA; prints the card's name and power limit
-  2. build   compiles the seven CUDA sources (csrc/bp_sum_product.cu,
+  2. build   compiles the eight CUDA sources (csrc/bp_sum_product.cu,
              min_sum.cu, layered_min_sum.cu, lifted_min_sum.cu,
-             lifted_bp.cu, osd0.cu, sharded_min_sum_step.cu) with nvcc, all
+             lifted_bp.cu, osd0.cu, sharded_min_sum_step.cu and the
+             roofline benchmark's FP32 probe peak_chain.cu) with nvcc, all
              at once, and prints ptxas's registers and spills per kernel
   3. check   K1 (sum-product) vs the plain PyTorch BP on the card:
              [[610,61]] X and Z at batch 2048, early exit and fixed 100
@@ -210,9 +211,30 @@ exit) if any phase fails:
              at (data=2 x graph=2) (cut from 4 x 2: four ranks on the one
              card), whose own assertion holds, its data ranks launching K2
              and its graph ranks K8 alone
+ 28. suite   each script of benchmarks_torch/ through its ``main`` on the
+             card at reduced counts (BENCHMARK_CUTS), its records in a
+             temporary directory, with every launch count set to 0 just
+             before it and read just after: throughput (K1, K2, K3),
+             dynamic_weight_real W=1..4 (K1; the weight-cap counters equal
+             the static run's), relay_tuning [[610,61]] W=40 on one range
+             and seed (K2 damped; |z| < 4 against relay_tuning_r4.jsonl),
+             bicycle_ler at one p with relay 8 and OSD-0 (K5, K7),
+             sharded_step_bench at batch 1024 (K8, bit for bit its plain
+             version), large_code_real on [[610,61]] and the P=1051 probe
+             (K2, K4 bit for bit the plain loop; |z| < 4 against
+             large_code_real_r5.jsonl), scaling at 1 and 2 ranks (K1),
+             large_code_scaling on [[5210,521]] at (1,1) and (1,2) and
+             [[756,16,34]] at (1,1) and (1,3) (K2, K8 alone on the (1,2)
+             ranks, K5; counters equal across shapes) and
+             roofline_breakdown's peak, achieved-rate and HBM experiments
+             (the FP32 probe's timed calls bit for bit its plain version
+             at the full grid and chain; K1, K2, K3);
+             each script's gates raise.  K6 is launched by none of them (no
+             script decodes sum-product on a lifted code): phases 10-12
+             and 26 hold it
 
-Phases 20, 21, 23, 24, 26 and 27's graph demo share one card between
-their ranks, and gloo stages every collective through host memory: their
+Phases 20, 21, 23, 24, 26, 27's graph demo and 28's worlds share one card
+between their ranks, and gloo stages every collective through host memory: their
 times are not multi-card numbers.
 
 Every process a phase starts (nvcc, g++, nvidia-smi, the ranks of a world
@@ -272,6 +294,7 @@ from qec_ldpc_tpu_torch.kernels import (
     lifted_min_sum_cuda,
     min_sum_cuda,
     osd0_cuda,
+    peak_chain_cuda,
     placement,
     sharded_step_cuda,
 )
@@ -304,6 +327,18 @@ from qec_ldpc_tpu_torch.sampling.errors import (
 )
 
 import bench_torch
+from benchmarks_torch.common import two_proportion_z
+from benchmarks_torch import (
+    bicycle_ler,
+    dynamic_weight_real,
+    large_code_real,
+    large_code_scaling,
+    relay_tuning,
+    roofline_breakdown,
+    scaling,
+    sharded_step_bench,
+    throughput,
+)
 from examples_torch import (
     bicycle_demo,
     graph_parallel_demo,
@@ -412,9 +447,11 @@ LIBRARIES = (("qec_bp", bp_cuda.SOURCES), ("qec_min_sum", min_sum_cuda.SOURCES),
              ("qec_lifted_min_sum", lifted_min_sum_cuda.SOURCES),
              ("qec_lifted_bp", lifted_bp_cuda.SOURCES),
              ("qec_osd0", osd0_cuda.SOURCES),
-             ("qec_sharded_min_sum_step", sharded_step_cuda.SOURCES))
+             ("qec_sharded_min_sum_step", sharded_step_cuda.SOURCES),
+             ("qec_peak_chain", peak_chain_cuda.SOURCES))
 KERNEL_MODULES = (bp_cuda, min_sum_cuda, layered_cuda, lifted_min_sum_cuda,
-                  lifted_bp_cuda, osd0_cuda, sharded_step_cuda)
+                  lifted_bp_cuda, osd0_cuda, sharded_step_cuda,
+                  peak_chain_cuda)
 
 # The bound of a fixed-work decode: the larger of its float operations over
 # the H100 SXM's 67 TFLOP/s (float32 outside the tensor cores) and its bytes
@@ -452,6 +489,31 @@ GRAPH_QUALITY_CHUNKS = 1
 # phase 25: bench_torch.main at 1/8 of bench.py's counts
 BENCH_COUNTS = dict(headline_chunks=64, fixed_chunks=8, small_chunks=32,
                     gross_chunks=8)
+# phase 28: each benchmark script's main at these cuts of its defaults (the
+# code, weights, p and iteration limits kept), and the kernels it must
+# launch in this process (the worlds' ranks report their own)
+BENCHMARK_CUTS = (
+    ("throughput", throughput, dict(chunks=2),
+     ("bp_sum_product", "min_sum", "layered_min_sum")),
+    ("dynamic_weight_real", dynamic_weight_real, dict(w_max=4, probes=(1, 4)),
+     ("bp_sum_product",)),
+    ("relay_tuning", relay_tuning,
+     dict(workloads=("qc610_W40",), ranges=((0.2, 0.95),), seeds=(3,)),
+     ("min_sum",)),
+    ("bicycle_ler", bicycle_ler, dict(ps=(0.01,), relay=8, osd=0),
+     ("lifted_min_sum", "osd0")),
+    ("sharded_step_bench", sharded_step_bench, dict(batches=(1024,), iters=10),
+     ("sharded_min_sum_step",)),
+    ("large_code_real", large_code_real,
+     dict(qc=(61,), bb=False, probes=(1051,)), ("min_sum", "min_sum_wide")),
+    ("scaling", scaling, dict(devices=[1, 2]), ("bp_sum_product",)),
+    ("large_code_scaling", large_code_scaling,
+     dict(shapes={"qc_P521": ((1, 1), (1, 2)), "bb_756": ((1, 1), (1, 3))}),
+     ("min_sum", "lifted_min_sum")),
+    ("roofline_breakdown", roofline_breakdown,
+     dict(experiments=("peak", "achieved", "hbm"), chunks=8),
+     ("peak_chain", "bp_sum_product", "min_sum", "layered_min_sum")),
+)
 # K5's slab placements are held to plain at this batch in phase 10
 LIFTED_SLAB_BATCH = 128
 # the relay-shaped batches of phase 6 keep one lane in this many (the W=40
@@ -529,6 +591,7 @@ def reset_counts() -> None:
     lifted_bp_cuda.launches = 0
     osd0_cuda.launches = 0
     sharded_step_cuda.launches = 0
+    peak_chain_cuda.launches = 0
 
 
 def read_counts() -> dict[str, int]:
@@ -539,7 +602,8 @@ def read_counts() -> dict[str, int]:
             "lifted_min_sum": lifted_min_sum_cuda.launches,
             "lifted_bp": lifted_bp_cuda.launches,
             "osd0": osd0_cuda.launches,
-            "sharded_min_sum_step": sharded_step_cuda.launches}
+            "sharded_min_sum_step": sharded_step_cuda.launches,
+            "peak_chain": peak_chain_cuda.launches}
 
 
 def bound(graph, batch: int, iters: int, algorithm: str,
@@ -720,11 +784,6 @@ def time_k6_early_exit(gross: CodeGraphs, device) -> None:
             lane_iters=lane_iters, max_lane_iters=int(iters.max()),
             mean_lane_iters=f"{lane_iters / BATCH:.3f}",
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
-
-
-def two_proportion_z(k1: int, n1: int, k2: int, n2: int) -> float:
-    pool = (k1 + k2) / (n1 + n2)
-    return (k1 / n1 - k2 / n2) / math.sqrt(pool * (1 - pool) * (1 / n1 + 1 / n2))
 
 
 def syndromes(graphs: CodeGraphs, weight: int, seed: int, device,
@@ -2193,6 +2252,46 @@ def examples_phase(smi: str) -> dict:
     return out
 
 
+# -- phase 28: the benchmark suite ---------------------------------------------
+
+def benchmarks_phase(device, smi: str) -> dict:
+    """Phase 28: each script of benchmarks_torch/ through its ``main`` at
+    BENCHMARK_CUTS, its records in a temporary directory, each with every
+    launch count set to 0 just before it and read just after; each script's
+    own gates raise.  Returns the launches per script."""
+    phase("28 benchmarks")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="qec-benchmarks-") as tmp:
+        for name, script, cut, kernels in BENCHMARK_CUTS:
+            reset_counts()
+            t0 = time.perf_counter()
+            records = script.main(device=str(device),
+                                  out=f"{tmp}/{name}.jsonl", **cut)
+            seconds = time.perf_counter() - t0
+            out[name] = counts = read_counts()
+            say("benchmark", script=name, cut=json.dumps(cut),
+                records=len(records), seconds=f"{seconds:.2f}",
+                launches=json.dumps({k: v for k, v in counts.items() if v}),
+                card=json.dumps(smi))
+            for kernel in kernels:
+                check(counts[kernel] > 0, f"{name}: {kernel} not launched")
+            check(counts["lifted_bp"] == 0, f"{name} launched K6")
+            if name == "large_code_scaling":
+                ranks = {(r["code"].split()[0], r["num_graph"]):
+                         r["launches_rank0"] for r in records
+                         if "num_graph" in r}
+                say("benchmark", script=name,
+                    rank0_launches=json.dumps({f"{c} 1x{g}": v for (c, g), v
+                                               in ranks.items()}))
+                check(ranks[("qc_P521", 2)].get("sharded_min_sum_step", 0) > 0
+                      and not ranks[("qc_P521", 2)].get("min_sum"),
+                      "large_code_scaling: the (1,2) ranks did not run K8 "
+                      "alone")
+                check(not ranks[("bb_756", 3)],
+                      "large_code_scaling: the lifted ranks launched a kernel")
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     # 1. device -------------------------------------------------------------
@@ -2637,6 +2736,7 @@ def main() -> int:
     bench_phase(device, smi)
     lifted_mesh_phase(device, smi)
     examples_phase(smi)
+    benchmarks_phase(device, smi)
     phase(None)
     check("jax" not in sys.modules, "the port imported jax")
     left = descendants()

@@ -9,6 +9,9 @@ load and then die of SIGILL at call time, which cannot be caught) and a
 hash of the source and flags, so a foreign or stale library is never
 loaded.
 
+The bindings have the JAX package's names and returns (``gf2_rref``,
+``gf2_matvec``, ``parse_int_file``, ``osd_batch``, ``native_available``),
+except that where JAX returns None without the library, these raise.
 There is no NumPy fallback: if the library cannot be built, the call that
 needs it raises.  The OSD solver's plain single-lane version,
 ``decoder/osd._osd_one_np``, exists for the tests only.
@@ -89,7 +92,24 @@ def library(build_dir: Path = BUILD_DIR, compiler: str = COMPILER) -> ctypes.CDL
         ctypes.POINTER(ctypes.c_uint64), ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_uint64), ctypes.c_int,
         ctypes.POINTER(ctypes.c_uint8)]
+    lib.qec_gf2_rref.restype = ctypes.c_int
+    lib.qec_gf2_rref.argtypes = [
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.qec_parse_ints.restype = ctypes.c_long
+    lib.qec_parse_ints.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_long), ctypes.c_long]
     return lib
+
+
+def native_available() -> bool:
+    """True when the library builds (or is built) and loads here; the
+    bindings below raise where this is False."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def pack_rows(m: np.ndarray) -> tuple[np.ndarray, int]:
@@ -113,6 +133,37 @@ def unpack_rows(packed: np.ndarray, cols: int) -> np.ndarray:
     as_bytes = np.ascontiguousarray(packed).view(np.uint8).reshape(rows, -1)
     bits = np.unpackbits(as_bytes, axis=1, bitorder="little")
     return bits[:, :cols]
+
+
+def gf2_rref(m: np.ndarray) -> tuple[np.ndarray, list[int]]:
+    """RREF over GF(2) (``qec_gf2_rref``): ``(the nonzero rows of the
+    reduced matrix, their pivot columns)``."""
+    lib = library()
+    m = np.asarray(m, dtype=np.uint8)
+    rows, cols = m.shape
+    if rows == 0 or cols == 0:
+        return m.copy(), []
+    packed, words = pack_rows(m)
+    pivots = np.zeros(min(rows, cols), dtype=np.int32)
+    rank = lib.qec_gf2_rref(
+        packed.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        rows, words, cols,
+        pivots.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    return unpack_rows(packed[:rank], cols), [int(p) for p in pivots[:rank]]
+
+
+def parse_int_file(path: str, max_count: int) -> np.ndarray:
+    """The first ``max_count`` whitespace-separated integers of the file
+    (``qec_parse_ints``) as int64; raises FileNotFoundError when it cannot
+    be read."""
+    lib = library()
+    out = np.zeros(max_count, dtype=np.int64)
+    got = lib.qec_parse_ints(
+        str(path).encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+        max_count)
+    if got < 0:
+        raise FileNotFoundError(path)
+    return out[:got]
 
 
 def gf2_matvec(m: np.ndarray, vecs: np.ndarray) -> np.ndarray:

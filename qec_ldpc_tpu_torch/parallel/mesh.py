@@ -84,7 +84,9 @@ def maybe_init_distributed(device_type: str = "cuda") -> bool:
 class Mesh:
     """A (data, graph) device mesh over the process group: the
     ``DeviceMesh`` plus the collectives the engines call, each counted in
-    ``collectives`` (a dict of issued "all_gather" and "all_reduce")."""
+    ``collectives`` (a dict of issued "all_gather" and "all_reduce"), and
+    ``gathered_bytes``: the bytes this rank's all_gathers received from the
+    other ranks ((size - 1) times the tensor's bytes each)."""
 
     def __init__(self, device_mesh, device: torch.device):
         self.device_mesh = device_mesh
@@ -93,6 +95,7 @@ class Mesh:
         self.shape = {axis: device_mesh.size(i) for i, axis in enumerate(AXES)}
         self._groups = {axis: device_mesh.get_group(axis) for axis in AXES}
         self.collectives = {"all_gather": 0, "all_reduce": 0}
+        self.gathered_bytes = 0
 
     def rank(self, axis: str) -> int:
         """This rank's index along ``axis``."""
@@ -108,6 +111,7 @@ class Mesh:
         out = [torch.empty_like(x) for _ in range(self.size(axis))]
         dist.all_gather(out, x, group=self._groups[axis])
         self.collectives["all_gather"] += 1
+        self.gathered_bytes += (len(out) - 1) * x.numel() * x.element_size()
         return torch.stack(out)
 
     def all_reduce(self, x: torch.Tensor, op: str, axis: str) -> torch.Tensor:

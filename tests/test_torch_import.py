@@ -1,6 +1,8 @@
 """The PyTorch port stands apart from JAX: importing it loads no ``jax`` and
 no ``qec_ldpc_tpu``, and no file of it imports ``jax`` or anything of
-``qec_ldpc_tpu`` (the port keeps its own copy of the NumPy code layer)."""
+``qec_ldpc_tpu`` (the port keeps its own copy of the NumPy code layer); the
+port's benchmark suite (``benchmarks_torch/``) imports none of those nor
+the JAX package's ``benchmarks``."""
 
 import pathlib
 import re
@@ -18,13 +20,19 @@ PORT_FILES = sorted(p for p in PORT.rglob("*.py") if "_build" not in p.parts) + 
     # kernel's corner cases, which the card's test run imports
     ROOT / "tests" / "torch_mesh_workers.py", ROOT / "tests" / "osd0_cases.py",
     # the examples, which use the port alone
-    *sorted((ROOT / "examples_torch").glob("*.py"))]
+    *sorted((ROOT / "examples_torch").glob("*.py")),
+    # the benchmark suite
+    *sorted((ROOT / "benchmarks_torch").glob("*.py"))]
+BENCHMARK_SCRIPTS = sorted(p.stem for p in (ROOT / "benchmarks_torch").glob("*.py")
+                           if p.stem != "__init__")
 KERNEL_MODULES = sorted(p.stem for p in (PORT / "kernels").glob("*.py")
                         if p.stem != "__init__")
 
 IMPORT_JAX = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
 IMPORT_REFERENCE = re.compile(r"^\s*(?:import|from)\s+qec_ldpc_tpu(?!_torch)\b",
                               re.M)
+IMPORT_JAX_BENCHMARKS = re.compile(
+    r"^\s*(?:import|from)\s+benchmarks(?!_torch)\b", re.M)
 
 
 def test_import_leaves_jax_out():
@@ -59,10 +67,12 @@ def test_import_leaves_jax_out():
             "from qec_ldpc_tpu_torch.parallel import (mc_chunk, mc_chunk_arrays,\n"
             "    make_graph_sharded_arrays_chunk, make_graph_sharded_osd_chunk)\n"
             "import bench_torch\n"
+            + "".join(f"import benchmarks_torch.{m}\n" for m in BENCHMARK_SCRIPTS) +
             "qec_ldpc_tpu_torch.codes.known_bicycle_code('[[144,12,12]]').build_graphs()\n"
             "qec_ldpc_tpu_torch.codes.toric_code(3).build_graphs()\n"
-            "bad = sorted(m for m in sys.modules if m in ('jax', 'qec_ldpc_tpu')\n"
-            "             or m.startswith(('jax.', 'qec_ldpc_tpu.')))\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m in ('jax', 'qec_ldpc_tpu', 'benchmarks')\n"
+            "             or m.startswith(('jax.', 'qec_ldpc_tpu.', 'benchmarks.')))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
@@ -85,6 +95,7 @@ def test_no_file_imports_jax(path):
     text = path.read_text()
     assert not IMPORT_JAX.search(text), path
     assert not IMPORT_REFERENCE.search(text), path
+    assert not IMPORT_JAX_BENCHMARKS.search(text), path
 
 
 def test_scan_covers_the_osd_modules():
@@ -130,6 +141,15 @@ def test_scan_covers_the_lifted_engine_and_the_examples():
             "examples_torch/quickstart.py", "examples_torch/bicycle_demo.py",
             "examples_torch/quality_pipeline.py",
             "examples_torch/graph_parallel_demo.py"} <= names
+
+
+def test_scan_covers_the_benchmark_suite():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert set(BENCHMARK_SCRIPTS) == {
+        "common", "throughput", "dynamic_weight_real", "relay_tuning",
+        "bicycle_ler", "sharded_step_bench", "large_code_real", "scaling",
+        "large_code_scaling", "roofline_breakdown"}
+    assert {f"benchmarks_torch/{m}.py" for m in BENCHMARK_SCRIPTS} <= names
 
 
 # the JAX package's exported names that the port had lacked
