@@ -18,18 +18,36 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from benchmarks_torch import jax_stream
 from qec_ldpc_tpu_torch import construct_code
 from qec_ldpc_tpu_torch.codes import known_bicycle_code
-from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs
+from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs, decode_batch
+from qec_ldpc_tpu_torch.harness.stats import (
+    parse_code_params,
+    parse_reference_text,
+)
 from qec_ldpc_tpu_torch.kernels import placement
 from qec_ldpc_tpu_torch.parallel import mc_chunk
-from qec_ldpc_tpu_torch.sampling import C_TESTED, NUM_COUNTERS
+from qec_ldpc_tpu_torch.sampling import (
+    C_CONV_X,
+    C_CONV_Z,
+    C_CORRECTED,
+    C_LOGICAL,
+    C_SYN_X,
+    C_SYN_Z,
+    C_TESTED,
+    NUM_COUNTERS,
+    classify_batch,
+)
 
 BASELINE_ITER_SAMPLES_PER_S = 8.87e4  # reference CPU whole-machine, SURVEY §6
 
@@ -212,16 +230,41 @@ def fixed_work_rate(graphs: CodeGraphs, test, algorithm: str, *, weight: int,
 
 def run_chunks(graphs: CodeGraphs, test, cfg: BPConfig, *, seed: int,
                weight: int, error_probability: float, batch: int,
-               chunks: int, device: torch.device):
-    """``mc_chunk``'s chunks 0..``chunks - 1`` of ``seed`` under ``cfg``,
-    read to the host once at the end: (counters summed over the chunks,
-    (NUM_COUNTERS,) int64, and each chunk's executed lane-iterations,
-    (chunks, 2) int64 for X and Z), NumPy arrays."""
+               chunks: int, device: torch.device,
+               weight_cap: int | None = None, stream: str = "port"):
+    """``mc_chunk``'s chunks 0..``chunks - 1`` of ``seed`` under ``cfg``
+    (errors from the dynamic sampler with ``weight_cap`` candidates when it
+    is given), read to the host once at the end: (counters summed over the
+    chunks, (NUM_COUNTERS,) int64, and each chunk's executed
+    lane-iterations, (chunks, 2) int64 for X and Z), NumPy arrays.  The
+    benchmarks' one per-point Monte-Carlo loop: every sum is int64 (a
+    point of 2^20 lanes at 10^5 iterations runs ~10^11 lane-iterations).
+
+    ``stream="jax"``: chunk c's errors are instead the JAX package's draws
+    for the same point, its dynamic sampler's from ``fold_in(PRNGKey(seed),
+    c)`` (``jax_stream``), decoded and classified as ``mc_chunk`` does: on
+    them the port computes what JAX's own script computes on an IEEE
+    device."""
+    if stream not in ("port", "jax"):
+        raise ValueError(f"unknown stream {stream!r}")
     counters = torch.zeros(NUM_COUNTERS, dtype=torch.int64, device=device)
     its = []
     for c in range(chunks):
-        cnt, it = mc_chunk(graphs, test, seed, c, weight, error_probability,
-                           cfg, batch, device=device)
+        if stream == "jax":
+            xe, ze = (e.to(torch.int32) for e in
+                      jax_stream.sample_weight_w_errors_dynamic(
+                          jax_stream.fold_in(jax_stream.prng_key(seed), c),
+                          graphs.code.n, weight, weight_cap, batch, device))
+            res = decode_batch(graphs, graphs.x.syndrome(xe),
+                               graphs.z.syndrome(ze), error_probability, cfg)
+            cnt = classify_batch(test, xe, ze, res.decisions_x.to(torch.int32),
+                                 res.decisions_z.to(torch.int32),
+                                 res.error_code)
+            it = torch.stack([res.iter_samples_x, res.iter_samples_z])
+        else:
+            cnt, it = mc_chunk(graphs, test, seed, c, weight,
+                               error_probability, cfg, batch, device=device,
+                               weight_cap=weight_cap)
         counters += cnt
         its.append(it.to(torch.int64))
     host = torch.cat([counters, torch.stack(its).reshape(-1)]).cpu().numpy()
@@ -270,8 +313,250 @@ def two_proportion_z(k1: int, n1: int, k2: int, n2: int) -> float:
             / (pool * (1 - pool) * (1 / n1 + 1 / n2)) ** 0.5)
 
 
+def gate_parity(label: str, zs: list, full: bool) -> float:
+    """The port against JAX's run of the same points (:func:`jax_twin`):
+    every ``(what, z)`` of ``zs``, the two-proportion z of a port count
+    against JAX's, below 5 in magnitude, and, when the run covered the
+    script's whole corpus (``full``), their median |z| at most 1.  Returns
+    that median (0 when there is nothing to compare)."""
+    for what, z in zs:
+        gate(abs(z) < 5.0, f"{label} {what}: port vs JAX z = {z:+.3f}")
+    median = float(np.median([abs(z) for _, z in zs])) if zs else 0.0
+    gate(not full or median <= 1.0,
+         f"{label}: median port-vs-JAX |z| = {median:.3f} > 1")
+    worst = max(zs, key=lambda wz: abs(wz[1]), default=("-", 0.0))
+    print(f"{label}: port vs JAX over {len(zs)} counts, median |z| "
+          f"{median:.3f}, max |z| {abs(worst[1]):.3f} ({worst[0]})",
+          flush=True)
+    return median
+
+
+#: JAX's own per-point body on the CPU (``tests/golden_jax_cpu.py``, XLA,
+#: jax 0.9.0) at three points of the JAX records' keys and depths: the
+#: counters a ``--stream jax`` run must equal exactly on the card.  The TPU
+#: records at these points differ (golden_dated's archive W=5 corrected +
+#: logical 495,488 against 492,322 here), the TPU's arithmetic, not JAX's
+#: decoder.
+JAX_CPU_RUNS = {
+    # golden_sweep W=40, p_0.01 label, MAX=100: PRNGKey(1040), cap 64, 5 x 2048
+    ("golden_sweep", 40, 0.01, 100):
+        (10240, 10240, 10240, 7704, 1348, 1329, 39, 733, 15),
+    # golden_dated archive [[42,0]] W=5, 6: PRNGKey(5208), (5209), cap 48
+    ("golden_dated", "archive", (3, 3, 6, 7, 2, 3), 5):
+        (1048576, 1044233, 1044299, 124922, 325029, 325481, 367400, 205816,
+         206342),
+    ("golden_dated", "archive", (3, 3, 6, 7, 2, 3), 6):
+        (1048576, 1047139, 1047099, 41275, 399661, 400818, 352597, 314751,
+         315282),
+}
+
+
+#: the note of a ``--stream jax`` record
+JAX_STREAM_NOTE = (
+    "the JAX record's own points, keys, caps and depth: its samples drawn "
+    "in PyTorch by benchmarks_torch/jax_stream.py (jax.random's threefry "
+    "stream, bit for bit) and decoded on the card by the port, which is "
+    "the JAX decoder bit for bit on IEEE arithmetic: what the JAX script "
+    "gives on an IEEE device (JAX_CPU_RUNS hold it exactly at three "
+    "points).  The TPU record's counts on the same samples differ by the "
+    "TPU's arithmetic.  The port's own runs are gated on this record")
+
+
+def stream_name(name: str, stream: str) -> str:
+    """The record a script writes: ``name`` for the port's own samples,
+    ``<name>_jaxstream`` for the JAX records' samples."""
+    return name if stream == "port" else f"{name}_jaxstream"
+
+
+def jax_twin(name: str) -> list:
+    """The point lines of ``benchmarks_torch/data/<name>_jaxstream_h100
+    .jsonl``: the JAX record's own samples (its keys, caps and depth, drawn
+    by ``jax_stream``) decoded on the card by the port, which is JAX's
+    decoder bit for bit on IEEE arithmetic: what the JAX script gives on an
+    IEEE device.  The port's own runs are held to it, not to the TPU
+    records, whose arithmetic is the TPU's (``JAX_CPU_RUNS``)."""
+    with open(DATA_DIR / f"{name}_jaxstream_h100.jsonl") as f:
+        return [json.loads(line) for line in f if line.strip()][1:]
+
+
+def gate_jax_cpu(key: tuple, counters, batch: int) -> None:
+    """A ``--stream jax`` point that ``JAX_CPU_RUNS`` holds, drawn as the
+    JAX script draws it (its batch of 2048 and depth), must equal it."""
+    want = JAX_CPU_RUNS.get(key)
+    if want is not None and batch == 2048 and int(counters[0]) == want[0]:
+        got = tuple(int(x) for x in counters)
+        gate(got == want, f"{key}: the JAX stream gives {got}, JAX on the "
+                          f"CPU {want}")
+        print(f"{key}: equal to JAX on the CPU", flush=True)
+
+
 def jax_records(relative: str) -> list:
     """The JAX package's committed records ``benchmarks/<relative>``, one
     dict per JSON line (the gates compare with them)."""
     with open(JAX_RECORDS / relative) as f:
         return [json.loads(line) for line in f if line.strip()]
+
+
+# -- the reference's counts ------------------------------------------------------
+
+#: construct_code's parameters of the corpus's two named codes
+FLAGSHIP = (4, 5, 10, 61, 9, 49)   # [[610,61]], results/[4,5,10,61,9,49]/
+CODE42 = (3, 3, 6, 7, 2, 3)        # [[42,0]], results/[2,3,6,7,2,3]/
+#: the counters the records name, each with the reference file's field
+#: (CodeStatistics.h:22-37) and the index of the port's counter
+COUNTERS = {"tested": ("Errors Tested", C_TESTED),
+            "corrected": ("Corrected", C_CORRECTED),
+            "logical": ("Logical Errors", C_LOGICAL),
+            "syn_x": ("Syndrome Errors X", C_SYN_X),
+            "syn_z": ("Syndrome Errors Z", C_SYN_Z),
+            "conv_x": ("Convergence Fail X", C_CONV_X),
+            "conv_z": ("Convergence Fail Z", C_CONV_Z)}
+#: per corpus script: the committed JAX record that carries the reference's
+#: side of each point (``ler_sweep`` reads the sweep record of its code) and
+#: the counters the script compares
+REFERENCE = {
+    "golden_sweep": ("data/golden_sweep_r3.jsonl",
+                     ("tested", "corrected", "logical", "syn_x", "syn_z")),
+    "golden_sweep42": ("data/golden_sweep42_deep_r5.jsonl", tuple(COUNTERS)),
+    "golden_deep": ("data/golden_deep_r4.jsonl", tuple(COUNTERS)),
+    "golden_dated": ("data/golden_dated_r5.jsonl",
+                     ("tested", "corrected", "syn_x", "syn_z", "conv_x",
+                      "conv_z")),
+    "ler_sweep": (None, ("tested", "corrected", "logical")),
+}
+#: the corpus directory of each named code, and the sweep script whose
+#: record holds its points
+NAMED_DIRS = {FLAGSHIP: ("[4,5,10,61,9,49]", "golden_sweep"),
+              CODE42: ("[2,3,6,7,2,3]", "golden_sweep42")}
+#: the reference's deepest [[610,61]] file (100,000 samples, 1 logical
+#: error), at the corpus root; golden_deep reads its W=15 point from it
+HEADLINE_FILE = ("[J=4,K=5,L=10,P=61,s=9,t=49][[n=610,k=61]]"
+                 "_W_15_MAX_100_p_0.01.txt")
+#: golden_dated's dated directories: the MAX sweep's, each with its cap, and
+#: the pre-detection one (cap unrecorded)
+MAX_SWEEP_DIRS = (("11-20-2017_max_50_iterations", 50),
+                  ("11-20-2017_max_100_iterations", 100),
+                  ("11-20-2017_max_1000_iterations", 1000))
+PRE_DETECTION_DIR = "11-18-2017_no_logical_error_detection"
+_NAME_RE = re.compile(r"_W_(\d+)_MAX_(\d+)_p_([0-9.]+)\.txt$")
+
+
+class RefPoint(NamedTuple):
+    """One point of the reference's corpus: its weight, iteration cap (None
+    where the file records none), the p in the file's name (None where
+    there is none) and the reference's count of each counter the script
+    compares.  golden_dated's points also name their section, their code
+    (construct_code's parameters; the archive mixes two) and, in the dated
+    directories, their file."""
+
+    weight: int
+    max_iters: int | None
+    p: float | None
+    counts: dict
+    section: str | None = None
+    code: tuple | None = None
+    file: str | None = None
+
+
+def reference_points(script: str, ref_dir: str | Path | None = None,
+                     code: tuple = FLAGSHIP) -> tuple[list, str | None]:
+    """``(points, source)``: the reference's counts at every point of the
+    corpus script ``script``, as :class:`RefPoint`s in the order the JAX
+    script visits them, and where they were read.
+
+    With no ``ref_dir`` they come from the committed JAX record of the
+    same script (``REFERENCE``; fraction-only records are rounded back to
+    counts) and ``source`` names that file.  ``ref_dir``, the corpus's
+    ``results`` directory, reads the corpus files instead, through
+    ``harness/stats.py::parse_reference_text``, as the JAX scripts do; the
+    W=15 point of golden_deep is then the headline file at its root, and
+    ``source`` is the directory.  ``code``: ler_sweep's code (its named
+    directory, or its sweep record; other codes have no points and
+    ``source`` None)."""
+    relative, fields = REFERENCE[script]
+    if ref_dir is not None:
+        return _corpus_points(script, Path(ref_dir), fields, tuple(code)), \
+            str(ref_dir)
+    if script == "ler_sweep":
+        if tuple(code) not in NAMED_DIRS:
+            return [], None
+        relative = REFERENCE[NAMED_DIRS[tuple(code)][1]][0]
+    points, seen = [], set()
+    for rec in jax_records(relative)[1:]:
+        n = rec["ref_tested"]
+        counts = {f: (n if f == "tested" else rec[f"ref_{f}"]
+                      if f"ref_{f}" in rec
+                      else round(rec[f"ref_{f}_fraction"] * n))
+                  for f in fields}
+        key = (rec.get("section"), rec.get("code"), rec.get("file"),
+               rec["weight"], rec.get("max_iters"), rec.get("p"))
+        if key in seen:   # golden_dated's candidate caps share one file
+            continue
+        seen.add(key)
+        dated = script == "golden_dated"
+        points.append(RefPoint(
+            rec["weight"], rec.get("max_iters"),
+            rec.get("p", rec.get("p_label")), counts, rec.get("section"),
+            parse_code_params(rec["code"]) if dated else None,
+            rec.get("file")))
+    return points, f"benchmarks/{relative}"
+
+
+def _read_reference(path: Path) -> list:
+    with open(path) as f:
+        return parse_reference_text(f.read())
+
+
+def _counts(rec: dict, fields) -> dict:
+    return {f: int(rec[COUNTERS[f][0]]) for f in fields}
+
+
+def _named_points(directory: Path, fields, section=None, code=False) -> list:
+    """The first record of every ``..._W_w_MAX_m_p_p.txt`` file in
+    ``directory`` (an empty file is skipped), in file-name order; ``code``:
+    each point names its code, read from its record."""
+    points = []
+    for path in sorted(directory.glob("*.txt")):
+        m = _NAME_RE.search(path.name)
+        recs = _read_reference(path) if m else []
+        if recs:
+            points.append(RefPoint(
+                int(m[1]), int(m[2]), float(m[3]), _counts(recs[0], fields),
+                section, parse_code_params(recs[0]["Code"]) if code else None))
+    return points
+
+
+def _dated_points(directory: Path, fields, section: str,
+                  max_iters: int | None) -> list:
+    """Every record with an ``Error Weight`` in ``directory``'s files (the
+    2017 files are named by run index), in file-name order."""
+    return [RefPoint(int(rec["Error Weight"]), max_iters, None,
+                     _counts(rec, fields), section,
+                     parse_code_params(rec["Code"]), path.name)
+            for path in sorted(directory.glob("*.txt"))
+            for rec in _read_reference(path) if "Error Weight" in rec]
+
+
+def _corpus_points(script: str, root: Path, fields, code: tuple) -> list:
+    if script in ("golden_sweep", "golden_sweep42"):
+        return _named_points(root / NAMED_DIRS[
+            FLAGSHIP if script == "golden_sweep" else CODE42][0], fields)
+    if script == "ler_sweep":
+        spec = ",".join(str(x) for x in code)
+        return _named_points(root / f"[{spec}]", fields)
+    if script == "golden_deep":
+        # the p_0.01-labelled MAX=100 files, W=15 from the headline file
+        by_weight = {pt.weight: pt for pt in _named_points(
+            root / NAMED_DIRS[FLAGSHIP][0], fields)
+            if pt.max_iters == 100 and pt.p == 0.01}
+        by_weight[15] = RefPoint(15, 100, 0.01, _counts(
+            _read_reference(root / HEADLINE_FILE)[0], fields))
+        return [by_weight[w] for w in sorted(by_weight)]
+    if script == "golden_dated":
+        points = _named_points(root / "archive", fields, "archive", code=True)
+        for dirname, max_iters in MAX_SWEEP_DIRS:
+            points += _dated_points(root / dirname, fields, "max_sweep",
+                                    max_iters)
+        return points + _dated_points(root / PRE_DETECTION_DIR, fields,
+                                      "pre_detection", None)
+    raise ValueError(f"no reference corpus for {script!r}")

@@ -24,9 +24,13 @@ exit) if any phase fails:
              iterations, the [[42]] code at 30 fixed iterations, the
              [[5210,521]] X and Z graphs at batch 1024 (30 iterations, early
              exit: phase 20's shape) and the P=1051 probe code's X and Z at
-             10 fixed iterations (E in the lane's global slab).  K1 counts
-             each lane's own iterations: every lane's count must equal the
-             plain count of that lane alone
+             10 fixed iterations (E in the lane's global slab), the J=2
+             [[42,7]] code's X and Z (column weight 2) at batch 2048, W=4,
+             p = 0.02 and MAX=1000 under early exit, and [[42,0]] X at W=21
+             (BP fails on nearly every lane) at the cap LONG_CAP on 128
+             lanes; then one launch at MAX=10^5 on 2048 lanes of it, timed.
+             K1 counts each lane's own iterations: every lane's count must
+             equal the plain count of that lane alone
   4. time    K1: fixed-work X decode at batch 2048, kernel vs plain; under
              early exit on the headline's W=15 X and Z batches, beside a
              bound from the executed lane-iterations.  Every early-exit
@@ -228,7 +232,14 @@ exit) if any phase fails:
              ranks, K5; counters equal across shapes) and
              roofline_breakdown's peak, achieved-rate and HBM experiments
              (the FP32 probe's timed calls bit for bit its plain version
-             at the full grid and chain; K1, K2, K3);
+             at the full grid and chain; K1, K2, K3); and the
+             reference-corpus scripts, each through K1 with its codes,
+             priors and caps, gated against the reference's counts (from
+             the JAX records) and the JAX records: golden_sweep W=15, 30,
+             45 at both labels, golden_sweep42 W=10 MAX=100 and W=3
+             MAX=10^5 at 8,192 samples, golden_deep W=15 and 58 at 65,536,
+             golden_dated one point of each section at 65,536 and
+             ler_sweep W=15 and 30 at 10,240;
              each script's gates raise.  K6 is launched by none of them (no
              script decodes sum-product on a lifted code): phases 10-12
              and 26 hold it
@@ -331,8 +342,13 @@ from benchmarks_torch.common import two_proportion_z
 from benchmarks_torch import (
     bicycle_ler,
     dynamic_weight_real,
+    golden_dated,
+    golden_deep,
+    golden_sweep,
+    golden_sweep42,
     large_code_real,
     large_code_scaling,
+    ler_sweep,
     relay_tuning,
     roofline_breakdown,
     scaling,
@@ -513,7 +529,34 @@ BENCHMARK_CUTS = (
     ("roofline_breakdown", roofline_breakdown,
      dict(experiments=("peak", "achieved", "hbm"), chunks=8),
      ("peak_chain", "bp_sum_product", "min_sum", "layered_min_sum")),
+    # the reference-corpus scripts: codes, weights, priors and caps kept,
+    # points and samples cut
+    ("golden_sweep", golden_sweep, dict(weights=(15, 30, 45)),
+     ("bp_sum_product",)),
+    ("golden_sweep42", golden_sweep42,
+     dict(points=((10, 100), (3, 100_000)), samples_per_point=8192),
+     ("bp_sum_product",)),
+    ("golden_deep", golden_deep, dict(weights=(15, 58),
+                                      samples_per_point=65536),
+     ("bp_sum_product",)),
+    ("golden_dated", golden_dated,
+     dict(points=(("archive", 45), ("max_sweep", 3), ("pre_detection", 2)),
+          samples_per_point=65536), ("bp_sum_product",)),
+    ("ler_sweep", ler_sweep, dict(weights=(15, 30), count=10240,
+                                  steps_per_call=5), ("bp_sum_product",)),
 )
+# phase 3: K1 on the J=2 [[42,7]] code at a full batch, W=J2_WEIGHT, the
+# corpus's prior and MAX=J2_MAX under early exit; and at a long cap on
+# [[42,0]] at W=LONG_WEIGHT (BP fails on nearly every lane), on LONG_LANES
+# lanes against the plain loop, which takes ~1.0 ms an iteration there on
+# the H100: LONG_CAP keeps it to ~30 s
+J2_CODE = (2, 3, 6, 7, 2, 3)
+J2_WEIGHT = 4
+J2_MAX = 1000
+GOLDEN_P = 0.02
+LONG_WEIGHT = 21
+LONG_LANES = 128
+LONG_CAP = 30_000
 # K5's slab placements are held to plain at this batch in phase 10
 LIFTED_SLAB_BATCH = 128
 # the relay-shaped batches of phase 6 keep one lane in this many (the W=40
@@ -883,6 +926,35 @@ def compare_layered(graph, syndrome, llr: float, cfg: BPConfig, shape=None):
                  != syndrome_fail(graph, d_p, syndrome)).sum())
     mism += int((it_k != lanes_p).sum())
     return mism, err, int(lanes_p.max()), nans
+
+
+def long_cap_k1(device, g42: CodeGraphs, prior: np.float32) -> float:
+    """K1 at the corpus's long caps on [[42,0]] at W=LONG_WEIGHT, where BP
+    fails on nearly every lane and each runs to its cap: held to the plain
+    loop at LONG_CAP on LONG_LANES lanes (the largest cap whose plain loop
+    takes about 30 s there), then one launch at MAX=10^5 on a full batch,
+    timed (golden_sweep42's longest points run it).  Returns the largest
+    finite |kernel - plain|."""
+    s_long = syndromes(g42, LONG_WEIGHT, 24, device, batch=LONG_LANES)
+    t0 = time.perf_counter()
+    worst = run_checks("bp_sum_product", [
+        ("[[42,0]]", "X", f"early_exit cap {LONG_CAP}", g42.x, s_long[0],
+         prior, BPConfig(max_iters=LONG_CAP))], compare_bp)
+    say("check", kernel="bp_sum_product", long_cap=LONG_CAP,
+        lanes=LONG_LANES, seconds=f"{time.perf_counter() - t0:.2f}")
+    s_full = syndromes(g42, LONG_WEIGHT, 25, device)
+    cap = 100_000
+    _, iters = bp_cuda.bp_run(g42.x, s_full[0], prior, cap, 10)
+    ms = time_ms(lambda: bp_cuda.bp_run(g42.x, s_full[0], prior, cap, 10), 2)
+    lane_iters = int(iters.sum())
+    bound_ms, bound_by = bound(g42.x, BATCH, cap, "sum-product",
+                               lane_iters=lane_iters)
+    say("time", kernel="bp_sum_product", graph=f"[[42,0]] X W={LONG_WEIGHT}",
+        max_iters=cap, batch=BATCH, ms_per_launch=f"{ms:.3f}",
+        lane_iters=lane_iters, lanes_at_cap=int((iters == cap).sum()),
+        us_per_iteration=f"{1e3 * ms / int(iters.max()):.3f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+    return worst
 
 
 def run_checks(kernel: str, cases, compare) -> float:
@@ -2351,6 +2423,16 @@ def main() -> int:
     sp_bp = syndromes(probe, probe_weight, 22, device, batch=PROBE_BP_BATCH)
     sp30 = BPConfig(max_iters=SHARDED_ITERS)
     fixed10 = BPConfig(max_iters=10, check_every=11)
+    # the J=2 [[42,7]] code (column weight 2: golden_dated's max_sweep and
+    # pre_detection sections) at a full batch under early exit, MAX=1000
+    gj2 = CodeGraphs.build(construct_code(*J2_CODE))
+    prior_golden = np.float32(BPConfig().prior_factor) * np.float32(GOLDEN_P)
+    sj2 = syndromes(gj2, J2_WEIGHT, 23, device)
+    j2cfg = BPConfig(max_iters=J2_MAX)
+    cases += [("[[42,7]] J=2", "X", "early_exit", gj2.x, sj2[0], prior_golden,
+               j2cfg),
+              ("[[42,7]] J=2", "Z", "early_exit", gj2.z, sj2[1], prior_golden,
+               j2cfg)]
     cases += [("[[5210,521]]", "X", "early_exit", g5210.x, s5210_bp[0], prior,
                sp30),
               ("[[5210,521]]", "Z", "early_exit", g5210.z, s5210_bp[1], prior,
@@ -2366,6 +2448,8 @@ def main() -> int:
     check(placements[f"P={PROBE_P} Z"].slab_floats > 0,
           "the P=1051 check does not reach the slab")
     worst = {"bp_sum_product": run_checks("bp_sum_product", cases, compare_bp)}
+    worst["bp_sum_product"] = max(worst["bp_sum_product"], long_cap_k1(
+        device, g42, prior_golden))
 
     # 4. K1 time vs plain (fixed work, [[610,61]] X, batch 2048) --------------
     phase("4 K1 time")

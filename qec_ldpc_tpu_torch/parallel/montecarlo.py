@@ -268,19 +268,19 @@ def data_shard(mesh: Mesh | None, batch: int) -> tuple[slice | None, int]:
 def mc_chunk(graphs: CodeGraphs, i_minus_p, seed: int, chunk: int,
              weight: int, error_probability: float, cfg: BPConfig,
              batch: int, error_model: str = "weight", relay_retries: int = 0,
-             *, device: torch.device | str):
+             *, device: torch.device | str, weight_cap: int | None = None):
     """One chunk of :func:`run_monte_carlo` on ``device``: the ``batch``
     samples of global chunk ``chunk`` from the generators of (seed, chunk),
     decoded (relay-repaired when ``relay_retries > 0``) and classified.
-    ``i_minus_p`` as in :func:`run_monte_carlo`.  Returns device tensors
-    (counters[NUM_COUNTERS] int32, iters[2]), iters the executed
-    lane-iterations for [X, Z]."""
+    ``i_minus_p`` and ``weight_cap`` as in :func:`run_monte_carlo`.
+    Returns device tensors (counters[NUM_COUNTERS] int32, iters[2]), iters
+    the executed lane-iterations for [X, Z]."""
     device = torch.device(device)
     return _chunk_body(graphs, _resolve_logical_test(graphs, i_minus_p, device),
                        chunk_generator(seed, chunk, device), weight,
                        error_probability, cfg, batch, error_model,
                        relay_retries, relay_draws(seed, chunk, device)
-                       if relay_retries > 0 else None)
+                       if relay_retries > 0 else None, weight_cap)
 
 
 def mc_chunk_arrays(graphs: CodeGraphs, seed: int, chunk: int, weight: int,

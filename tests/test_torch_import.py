@@ -148,7 +148,11 @@ def test_scan_covers_the_benchmark_suite():
     assert set(BENCHMARK_SCRIPTS) == {
         "common", "throughput", "dynamic_weight_real", "relay_tuning",
         "bicycle_ler", "sharded_step_bench", "large_code_real", "scaling",
-        "large_code_scaling", "roofline_breakdown"}
+        "large_code_scaling", "roofline_breakdown",
+        # the reference-corpus scripts, and the JAX random stream their
+        # --stream jax runs draw
+        "golden_sweep", "golden_sweep42", "golden_deep", "golden_dated",
+        "ler_sweep", "jax_stream"}
     assert {f"benchmarks_torch/{m}.py" for m in BENCHMARK_SCRIPTS} <= names
 
 
