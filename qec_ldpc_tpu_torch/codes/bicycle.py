@@ -148,6 +148,7 @@ class BicycleCode:
     def build_graphs(self):
         """CodeGraphs with lifted X/Z Tanner graphs: graphs.x decodes the
         x-error syndrome (H_Z graph), graphs.z the z-error syndrome (H_X)."""
+        from qec_ldpc_tpu_torch import tracing
         from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs
         from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
 
@@ -155,10 +156,11 @@ class BicycleCode:
             edges = ([(0, 0, s) for s in col0] + [(0, 1, s) for s in col1])
             return LiftedGraph.build(1, 2, self.group, edges)
 
-        gx = graph(self._transpose(self.b_terms, self.l, self.m),
-                   self._transpose(self.a_terms, self.l, self.m))
-        gz = graph(self.a_terms, self.b_terms)
-        return CodeGraphs(code=self, x=gx, z=gz)
+        with tracing.span("setup.graphs"):
+            gx = graph(self._transpose(self.b_terms, self.l, self.m),
+                       self._transpose(self.a_terms, self.l, self.m))
+            gz = graph(self.a_terms, self.b_terms)
+            return CodeGraphs(code=self, x=gx, z=gz)
 
     def __str__(self) -> str:
         a = "+".join(f"x{i}y{j}" for i, j in self.a_terms)

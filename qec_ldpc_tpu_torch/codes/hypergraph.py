@@ -157,11 +157,13 @@ class HypergraphProductCode:
     def build_graphs(self):
         """CodeGraphs with lifted X/Z Tanner graphs: graphs.x decodes the
         x-error syndrome (H_Z graph), graphs.z the z-error syndrome (H_X)."""
+        from qec_ldpc_tpu_torch import tracing
         from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs
 
-        return CodeGraphs(code=self,
-                          x=self._graph(self._edges_hz()),
-                          z=self._graph(self._edges_hx()))
+        with tracing.span("setup.graphs"):
+            return CodeGraphs(code=self,
+                              x=self._graph(self._edges_hz()),
+                              z=self._graph(self._edges_hx()))
 
     def __str__(self) -> str:
         h1 = "+".join("1" if a == 0 else f"x{a}" for a in self.h1_terms)

@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from qec_ldpc_tpu_torch import tracing
 from qec_ldpc_tpu_torch.codes import QuantumLDPCCode
 from qec_ldpc_tpu_torch.decoder import layered, min_sum, sum_product
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
@@ -71,11 +72,12 @@ class CodeGraphs:
 
     @staticmethod
     def build(code: QuantumLDPCCode) -> "CodeGraphs":
-        return CodeGraphs(
-            code=code,
-            x=CirculantGraph.from_table(code.hc, code.P),
-            z=CirculantGraph.from_table(code.hd, code.P),
-        )
+        with tracing.span("setup.graphs"):
+            return CodeGraphs(
+                code=code,
+                x=CirculantGraph.from_table(code.hc, code.P),
+                z=CirculantGraph.from_table(code.hd, code.P),
+            )
 
 
 @dataclasses.dataclass
@@ -205,7 +207,8 @@ def _decode_one_graph(graph: CirculantGraph | LiftedGraph,
         run = sum_product.bp_run if plain else bp_cuda.bp_run
         args = (prior, cfg.max_iters, cfg.check_every, cfg.conv_low,
                 cfg.conv_high)
-    out, lane_iters = run(graph, syn_k, *args)
+    with tracing.span("mc.launch"):
+        out, lane_iters = run(graph, syn_k, *args)
     if plain:
         lane_iters = lane_iters.expand(syn_k.shape[1])
     if inv is not None:
@@ -248,15 +251,21 @@ def decode_batch(
             "kernel_roll_impl='mxu' is a TPU matrix-unit routing; the port "
             "routes by index")
     prior = np.float32(cfg.prior_factor) * np.float32(error_probability)
-    out = []
-    for graph, syndrome in ((graphs.x, syndrome_x), (graphs.z, syndrome_z)):
-        syndrome = syndrome.to(torch.int32).contiguous()
-        *flags, lane_iters, soft = _decode_one_graph(graph, syndrome, prior,
-                                                     cfg, plain)
-        out.append((*flags, lane_iters.max(), lane_iters.sum(), soft))
-    (dx, cfx, sfx, itx, isx, softx), (dz, cfz, sfz, itz, isz, softz) = out
-    return DecodeResult(decisions_x=dx, decisions_z=dz,
-                        error_code=error_code(sfx, sfz, cfx, cfz),
+    out, ec = [], None
+    for graph, syndrome, syn_bit, conv_bit in (
+            (graphs.x, syndrome_x, SYNDROME_FAIL_X, CONVERGENCE_FAIL_X),
+            (graphs.z, syndrome_z, SYNDROME_FAIL_Z, CONVERGENCE_FAIL_Z)):
+        with tracing.span("mc.decode"):
+            syndrome = syndrome.to(torch.int32).contiguous()
+            decisions, conv_fail, syn_fail, lane_iters, soft = (
+                _decode_one_graph(graph, syndrome, prior, cfg, plain))
+            # each graph's error-code bits (error_code's, one graph at a time)
+            bits = (syn_fail.to(torch.int32) * syn_bit
+                    + conv_fail.to(torch.int32) * conv_bit)
+            ec = bits if ec is None else ec + bits
+            out.append((decisions, lane_iters.max(), lane_iters.sum(), soft))
+    (dx, itx, isx, softx), (dz, itz, isz, softz) = out
+    return DecodeResult(decisions_x=dx, decisions_z=dz, error_code=ec,
                         iters_x=itx, iters_z=itz,
                         iter_samples_x=isx, iter_samples_z=isz,
                         soft_x=softx, soft_z=softz)

@@ -32,6 +32,7 @@ import math
 import numpy as np
 import torch
 
+from qec_ldpc_tpu_torch import tracing
 from qec_ldpc_tpu_torch.codes import gf2_rref
 from qec_ldpc_tpu_torch.kernels import osd0_cuda
 
@@ -79,10 +80,12 @@ class DeviceOSD0:
         Returns ((n, B) uint8 corrections, (B,) bool solved) on the
         syndromes' device."""
         device = syndromes.device
-        e, solved, *_ = osd0_cuda.osd0_solve(
-            self.columns(device), syndromes.to(torch.int32).contiguous(),
-            order.to(device=device, dtype=torch.int32).contiguous(),
-            self.m, self.n, self.rank)
+        hcols = self.columns(device)
+        syn = syndromes.to(torch.int32).contiguous()
+        order = order.to(device=device, dtype=torch.int32).contiguous()
+        with tracing.span("mc.launch"):
+            e, solved, *_ = osd0_cuda.osd0_solve(hcols, syn, order, self.m,
+                                                 self.n, self.rank)
         return e, solved
 
     def decode_device(self, syndromes: torch.Tensor, reliability: torch.Tensor,

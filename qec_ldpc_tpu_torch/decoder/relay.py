@@ -35,6 +35,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from qec_ldpc_tpu_torch import tracing
 from qec_ldpc_tpu_torch.decoder.decode import (
     SYNDROME_FAIL_X,
     SYNDROME_FAIL_Z,
@@ -100,23 +101,31 @@ def _relay_one_graph(graph: CirculantGraph | LiftedGraph,
 
     Returns ``(decisions, solved, retries_used, extra_lane_iters)``: the
     last counts the retries' executed min-sum lane-iterations (a 0-dim
-    tensor), so the work accounting stays honest under relay."""
+    tensor), so the work accounting stays honest under relay.  Counts the
+    retries in ``relay.retries``."""
     decisions, solved = decisions0, solved0
-    lane_iters = torch.zeros((), dtype=torch.int64, device=syndrome.device)
-    r = 0
-    while r < retries and not bool(solved.all()):
-        damping = graph.expand_vars(gammas(r)).contiguous()
-        s_eff = torch.where(solved[None, :], 0, syndrome)
-        v, per_lane = min_sum_cuda.min_sum_run(
-            graph, s_eff, llr, cfg.max_iters, cfg.check_every, cfg.conv_low,
-            cfg.min_sum_alpha, damping=damping)
-        vv = graph.vn_view(graph.to_var(v))
-        d_new = (vv <= 0.0).any(dim=0).to(decisions.dtype)
-        newly = ~syndrome_fail(graph, d_new, syndrome) & ~solved
-        decisions = torch.where(newly[None, :], d_new, decisions)
-        solved = solved | newly
-        lane_iters = lane_iters + per_lane.sum()
-        r += 1
+    with tracing.span("mc.relay"):
+        lane_iters = torch.zeros((), dtype=torch.int64, device=syndrome.device)
+        r = 0
+        while r < retries:
+            with tracing.span("mc.fetch"):
+                done = bool(solved.all())
+            if done:
+                break
+            damping = graph.expand_vars(gammas(r)).contiguous()
+            s_eff = torch.where(solved[None, :], 0, syndrome)
+            with tracing.span("mc.launch"):
+                v, per_lane = min_sum_cuda.min_sum_run(
+                    graph, s_eff, llr, cfg.max_iters, cfg.check_every,
+                    cfg.conv_low, cfg.min_sum_alpha, damping=damping)
+            vv = graph.vn_view(graph.to_var(v))
+            d_new = (vv <= 0.0).any(dim=0).to(decisions.dtype)
+            newly = ~syndrome_fail(graph, d_new, syndrome) & ~solved
+            decisions = torch.where(newly[None, :], d_new, decisions)
+            solved = solved | newly
+            lane_iters = lane_iters + per_lane.sum()
+            r += 1
+        tracing.count("relay.retries", r)
     return decisions, solved, r, lane_iters
 
 

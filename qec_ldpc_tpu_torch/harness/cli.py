@@ -324,7 +324,7 @@ def _run_points(cfg: RunConfig, device: torch.device, world: int,
 
     all_stats: list[CodeStatistics] = []
     try:
-        with debug.trace(cfg.profile_dir or None):
+        with debug.trace(cfg.profile_dir or None) as spans:
             for i, (w, p) in enumerate(sweep):
                 # the OSD mode journals per chunk, not per group, so its
                 # sequencing does not depend on steps_per_call: keep the
@@ -393,6 +393,8 @@ def _run_points(cfg: RunConfig, device: torch.device, world: int,
                           f"corrected={stats.corrected}, "
                           f"logical={stats.logical_errors}, "
                           f"{stats.samples_per_second:,.0f} samples/s")
+        if spans is not None:  # the profile is written: where the time went
+            print(spans.report(), file=sys.stderr)
     finally:
         if journal is not None:
             journal.close()

@@ -23,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from qec_ldpc_tpu_torch import tracing
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -64,6 +66,7 @@ def build(name: str, sources: tuple[str, ...]) -> tuple[Path, str]:
     out = library_path(name, sources)
     if out.exists():
         return out, ""
+    tracing.count("kernels.builds")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -80,5 +83,6 @@ def build(name: str, sources: tuple[str, ...]) -> tuple[Path, str]:
 
 def load(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     """Build the library if needed and load it."""
-    path, _ = build(name, sources)
-    return ctypes.CDLL(str(path))
+    with tracing.span("kernels.load"):
+        path, _ = build(name, sources)
+        return ctypes.CDLL(str(path))

@@ -53,6 +53,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from qec_ldpc_tpu_torch import tracing
 from qec_ldpc_tpu_torch.decoder.decode import (
     SYNDROME_FAIL_X,
     SYNDROME_FAIL_Z,
@@ -87,7 +88,8 @@ def chunk_generator(seed: int, chunk: int, device: torch.device | str,
     """The error generator of global chunk ``chunk``: a function of
     (seed, chunk) alone, and on a mesh of the rank's data index
     (``shard``)."""
-    return seeded_generator([seed, chunk, *shard], device)
+    with tracing.span("mc.sample"):
+        return seeded_generator([seed, chunk, *shard], device)
 
 
 def relay_draws(seed: int, chunk: int, device: torch.device | str,
@@ -127,22 +129,23 @@ def sample_syndromes(graphs: CodeGraphs, generator: torch.Generator,
     ``lanes``: keep only these lanes of the ``batch`` drawn (a data shard's
     columns of the full-batch draw)."""
     n = graphs.code.n
-    if error_model == "weight":
-        if weight_cap is not None:
-            xe, ze = sample_weight_w_errors_dynamic(generator, n, weight,
-                                                    weight_cap, batch)
+    with tracing.span("mc.sample"):
+        if error_model == "weight":
+            if weight_cap is not None:
+                xe, ze = sample_weight_w_errors_dynamic(generator, n, weight,
+                                                        weight_cap, batch)
+            else:
+                xe, ze = sample_weight_w_errors(generator, n, weight, batch)
+        elif error_model == "depolarizing":
+            xe, ze = sample_depolarizing_errors(generator, n,
+                                                error_probability, batch)
         else:
-            xe, ze = sample_weight_w_errors(generator, n, weight, batch)
-    elif error_model == "depolarizing":
-        xe, ze = sample_depolarizing_errors(generator, n, error_probability,
-                                            batch)
-    else:
-        raise ValueError(f"unknown error model {error_model!r}")
-    if lanes is not None:
-        xe, ze = xe[:, lanes], ze[:, lanes]
-    xe_i = xe.to(torch.int32).contiguous()
-    ze_i = ze.to(torch.int32).contiguous()
-    return xe_i, ze_i, graphs.x.syndrome(xe_i), graphs.z.syndrome(ze_i)
+            raise ValueError(f"unknown error model {error_model!r}")
+        if lanes is not None:
+            xe, ze = xe[:, lanes], ze[:, lanes]
+        xe_i = xe.to(torch.int32).contiguous()
+        ze_i = ze.to(torch.int32).contiguous()
+        return xe_i, ze_i, graphs.x.syndrome(xe_i), graphs.z.syndrome(ze_i)
 
 
 def _sample_and_decode(graphs: CodeGraphs, generator: torch.Generator,
@@ -177,10 +180,11 @@ def _chunk_body(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
     xe_i, ze_i, _, _, res = _sample_and_decode(
         graphs, generator, weight, error_probability, cfg, batch, error_model,
         relay_retries, draws, weight_cap)
-    counters = classify_batch(i_minus_p, xe_i, ze_i,
-                              res.decisions_x.to(torch.int32),
-                              res.decisions_z.to(torch.int32),
-                              res.error_code)
+    with tracing.span("mc.classify"):
+        counters = classify_batch(i_minus_p, xe_i, ze_i,
+                                  res.decisions_x.to(torch.int32),
+                                  res.decisions_z.to(torch.int32),
+                                  res.error_code)
     iters = torch.stack([res.iter_samples_x, res.iter_samples_z])
     return counters, iters
 
@@ -225,14 +229,15 @@ def _chunk_group(graphs: CodeGraphs, i_minus_p, chunk_ids, seed: int,
     counters = torch.zeros(NUM_COUNTERS, dtype=torch.int64, device=device)
     iters = torch.zeros(2, dtype=torch.int64, device=device)
     for c in chunk_ids:
-        cnt, its = _chunk_body(graphs, i_minus_p,
-                               chunk_generator(seed, c, device, *shard),
-                               weight, error_probability, cfg, batch,
-                               error_model, relay_retries,
-                               relay_draws(seed, c, device, *shard)
-                               if relay_retries > 0 else None, weight_cap)
-        counters += cnt
-        iters += its
+        with tracing.span("mc.chunk", c):
+            cnt, its = _chunk_body(graphs, i_minus_p,
+                                   chunk_generator(seed, c, device, *shard),
+                                   weight, error_probability, cfg, batch,
+                                   error_model, relay_retries,
+                                   relay_draws(seed, c, device, *shard)
+                                   if relay_retries > 0 else None, weight_cap)
+            counters += cnt
+            iters += its
     return counters, iters
 
 
@@ -395,51 +400,58 @@ def run_monte_carlo(
     Returns (counters[NUM_COUNTERS] int64 numpy, total_bp_lane_iterations).
     """
     device = torch.device(device)
-    i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
-    if mesh is None:
-        def run_group(ids):
-            return _chunk_group(graphs, i_minus_p, ids, seed, (), weight,
-                                error_probability, cfg, batch_size,
-                                error_model, relay_retries, device,
-                                weight_cap)
-    else:
-        if not isinstance(mesh, Mesh):
-            raise ValueError(f"mesh must be a parallel.mesh.Mesh, got "
-                             f"{type(mesh).__name__}")
-        per_dev = _chunk_samples(batch_size, mesh) // mesh.size(DATA_AXIS)
-        if mesh.size(GRAPH_AXIS) > 1:
-            from qec_ldpc_tpu_torch.parallel.mc_graph import (
-                make_graph_sharded_chunk,
-            )
+    with tracing.span("mc.point"):
+        with tracing.span("mc.point_setup"):
+            i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
+            if mesh is None:
+                def run_group(ids):
+                    return _chunk_group(graphs, i_minus_p, ids, seed, (),
+                                        weight, error_probability, cfg,
+                                        batch_size, error_model,
+                                        relay_retries, device, weight_cap)
+            else:
+                if not isinstance(mesh, Mesh):
+                    raise ValueError(f"mesh must be a parallel.mesh.Mesh, got "
+                                     f"{type(mesh).__name__}")
+                per_dev = (_chunk_samples(batch_size, mesh)
+                           // mesh.size(DATA_AXIS))
+                if mesh.size(GRAPH_AXIS) > 1:
+                    from qec_ldpc_tpu_torch.parallel.mc_graph import (
+                        make_graph_sharded_chunk,
+                    )
 
-            chunk_fn = make_graph_sharded_chunk(mesh, graphs, weight, cfg,
-                                                per_dev, error_model,
-                                                relay_retries)
-        else:
-            chunk_fn = make_sharded_chunk(mesh, graphs, weight, cfg, per_dev,
-                                          error_model, relay_retries,
-                                          weight_cap)
+                    chunk_fn = make_graph_sharded_chunk(
+                        mesh, graphs, weight, cfg, per_dev, error_model,
+                        relay_retries)
+                else:
+                    chunk_fn = make_sharded_chunk(
+                        mesh, graphs, weight, cfg, per_dev, error_model,
+                        relay_retries, weight_cap)
 
-        def run_group(ids):
-            return chunk_fn(i_minus_p, seed, error_probability, ids,
-                            device=device)
-    totals = np.zeros(NUM_COUNTERS, dtype=np.int64)
-    if init_counters is not None:
-        totals += np.asarray(init_counters, dtype=np.int64)
-    total_iters = 0
-    num_chunks = -(-count // _chunk_samples(batch_size, mesh))
-    steps_per_call = _effective_spc(num_chunks, steps_per_call)
-    groups = [range(g, min(g + steps_per_call, num_chunks))
-              for g in range(0, num_chunks, steps_per_call)]
-    for gi in range(start_chunk, len(groups)):
-        counters, iters = run_group(groups[gi])
-        host = torch.cat([counters, iters]).cpu().numpy()  # one fetch
-        group_counters = host[:NUM_COUNTERS]
-        group_iters = int(host[NUM_COUNTERS:].sum())
-        totals += group_counters
-        total_iters += group_iters
-        if progress is not None:
-            progress(gi, len(groups), group_counters, group_iters)
+                def run_group(ids):
+                    return chunk_fn(i_minus_p, seed, error_probability, ids,
+                                    device=device)
+            totals = np.zeros(NUM_COUNTERS, dtype=np.int64)
+            if init_counters is not None:
+                totals += np.asarray(init_counters, dtype=np.int64)
+            total_iters = 0
+            num_chunks = -(-count // _chunk_samples(batch_size, mesh))
+            steps_per_call = _effective_spc(num_chunks, steps_per_call)
+            groups = [range(g, min(g + steps_per_call, num_chunks))
+                      for g in range(0, num_chunks, steps_per_call)]
+        for gi in range(start_chunk, len(groups)):
+            with tracing.span("mc.group"):
+                counters, iters = run_group(groups[gi])
+                both = torch.cat([counters, iters])
+                with tracing.span("mc.fetch"):
+                    host = both.cpu().numpy()  # one fetch
+                group_counters = host[:NUM_COUNTERS]
+                group_iters = int(host[NUM_COUNTERS:].sum())
+                totals += group_counters
+                total_iters += group_iters
+            if progress is not None:
+                with tracing.span(tracing.OUTSIDE):
+                    progress(gi, len(groups), group_counters, group_iters)
     return totals, total_iters
 
 
@@ -460,9 +472,10 @@ class _Fetch:
             self._ready.record()
 
     def get(self) -> np.ndarray:
-        if self._ready is not None:
-            self._ready.synchronize()
-        return self._host.numpy()
+        with tracing.span("mc.fetch"):
+            if self._ready is not None:
+                self._ready.synchronize()
+            return self._host.numpy()
 
 
 def _classify_and_compact(i_minus_p, xe, ze, sx, sz, res):
@@ -472,18 +485,21 @@ def _classify_and_compact(i_minus_p, xe, ze, sx, sz, res):
     holds the failed lanes, the X-failed and the Z-failed; ``bundle`` is
     (xe, ze, sx, sz, dx, dz, soft_x, soft_z, error_code) compacted (the
     soft outputs None when the decode made none)."""
-    ec = res.error_code
-    fail = (ec & _SYN_BITS) != 0
-    counters = classify_batch(i_minus_p, xe, ze,
-                              res.decisions_x.to(torch.int32),
-                              res.decisions_z.to(torch.int32), ec, valid=~fail)
-    order = torch.argsort((~fail).to(torch.int32), stable=True)
-    bundle = tuple(None if a is None else a.index_select(a.dim() - 1, order)
-                   for a in (xe, ze, sx, sz, res.decisions_x, res.decisions_z,
-                             res.soft_x, res.soft_z, ec))
-    counts = torch.stack([fail.sum(), ((ec & SYNDROME_FAIL_X) != 0).sum(),
-                          ((ec & SYNDROME_FAIL_Z) != 0).sum()])
-    return counters, counts, bundle
+    with tracing.span("mc.classify"):
+        ec = res.error_code
+        fail = (ec & _SYN_BITS) != 0
+        counters = classify_batch(i_minus_p, xe, ze,
+                                  res.decisions_x.to(torch.int32),
+                                  res.decisions_z.to(torch.int32), ec,
+                                  valid=~fail)
+        order = torch.argsort((~fail).to(torch.int32), stable=True)
+        bundle = tuple(None if a is None
+                       else a.index_select(a.dim() - 1, order)
+                       for a in (xe, ze, sx, sz, res.decisions_x,
+                                 res.decisions_z, res.soft_x, res.soft_z, ec))
+        counts = torch.stack([fail.sum(), ((ec & SYNDROME_FAIL_X) != 0).sum(),
+                              ((ec & SYNDROME_FAIL_Z) != 0).sum()])
+        return counters, counts, bundle
 
 
 def make_osd_chunk(graphs: CodeGraphs, weight: int, cfg: BPConfig,
@@ -526,26 +542,29 @@ def _repair_and_classify(post: CSSPostprocessor | None, i_minus_p,
     (OSD-0 on the device, ``lam > 0`` on the host); splicing and
     classification stay on the bundle's device, where the X- and Z-failed
     lanes are found from their known counts, with no host read.  Returns
-    the failed lanes' int32 counters on that device."""
+    the failed lanes' int32 counters on that device.  Counts the lanes
+    handed to OSD in ``osd.lanes``."""
     k, k_x, k_z = (int(v) for v in counts)
-    if k == 0:
-        return torch.zeros(NUM_COUNTERS, dtype=torch.int32,
-                           device=bundle[-1].device)
-    xe, ze, sx, sz, dx, dz, soft_x, soft_z, ec = (
-        None if a is None else a[..., :k] for a in bundle)
-    dec = {SYNDROME_FAIL_X: dx, SYNDROME_FAIL_Z: dz}
-    if post is not None:
-        for bit, osd, kb, syn, soft in (
-                (SYNDROME_FAIL_X, post.x, k_x, sx, soft_x),
-                (SYNDROME_FAIL_Z, post.z, k_z, sz, soft_z)):
-            if kb:
-                failed = torch.argsort(((ec & bit) == 0).to(torch.int32),
-                                       stable=True)[:kb]
-                dec[bit], ec = splice(osd, dec[bit], ec, bit, syn, soft,
-                                      failed)
-    return classify_batch(i_minus_p, xe, ze,
-                          dec[SYNDROME_FAIL_X].to(torch.int32),
-                          dec[SYNDROME_FAIL_Z].to(torch.int32), ec)
+    with tracing.span("mc.osd"):
+        if k == 0:
+            return torch.zeros(NUM_COUNTERS, dtype=torch.int32,
+                               device=bundle[-1].device)
+        xe, ze, sx, sz, dx, dz, soft_x, soft_z, ec = (
+            None if a is None else a[..., :k] for a in bundle)
+        dec = {SYNDROME_FAIL_X: dx, SYNDROME_FAIL_Z: dz}
+        if post is not None:
+            tracing.count("osd.lanes", k_x + k_z)
+            for bit, osd, kb, syn, soft in (
+                    (SYNDROME_FAIL_X, post.x, k_x, sx, soft_x),
+                    (SYNDROME_FAIL_Z, post.z, k_z, sz, soft_z)):
+                if kb:
+                    failed = torch.argsort(((ec & bit) == 0).to(torch.int32),
+                                           stable=True)[:kb]
+                    dec[bit], ec = splice(osd, dec[bit], ec, bit, syn, soft,
+                                          failed)
+        return classify_batch(i_minus_p, xe, ze,
+                              dec[SYNDROME_FAIL_X].to(torch.int32),
+                              dec[SYNDROME_FAIL_Z].to(torch.int32), ec)
 
 
 def run_monte_carlo_osd(
@@ -623,64 +642,71 @@ def run_monte_carlo_osd(
             "spanning all of them (mesh=None would decode the full batch in "
             "every process and count each failure once per process)")
     device = torch.device(device)
-    post = None
-    if lam >= 0:
-        cfg = dataclasses.replace(cfg, return_soft=True)
-        post = CSSPostprocessor(graphs, lam=lam).to(device)
-    if mesh is not None and mesh.size(GRAPH_AXIS) > 1:
-        from qec_ldpc_tpu_torch.parallel.mc_graph import (
-            make_graph_sharded_osd_chunk,
-        )
+    with tracing.span("mc.point"):
+        with tracing.span("mc.point_setup"):
+            post = None
+            if lam >= 0:
+                cfg = dataclasses.replace(cfg, return_soft=True)
+                post = CSSPostprocessor(graphs, lam=lam).to(device)
+            if mesh is not None and mesh.size(GRAPH_AXIS) > 1:
+                from qec_ldpc_tpu_torch.parallel.mc_graph import (
+                    make_graph_sharded_osd_chunk,
+                )
 
-        chunk_fn = make_graph_sharded_osd_chunk(mesh, graphs, weight, cfg,
-                                                batch_size, error_model,
-                                                relay_retries)
-    else:
-        chunk_fn = make_osd_chunk(graphs, weight, cfg, batch_size,
-                                  error_model, relay_retries, mesh)
-    i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
-    totals = np.zeros(NUM_COUNTERS, dtype=np.int64)
-    if init_counters is not None:
-        totals += np.asarray(init_counters, dtype=np.int64)
-    total_iters = 0
-    num_chunks = -(-count // batch_size)
+                chunk_fn = make_graph_sharded_osd_chunk(
+                    mesh, graphs, weight, cfg, batch_size, error_model,
+                    relay_retries)
+            else:
+                chunk_fn = make_osd_chunk(graphs, weight, cfg, batch_size,
+                                          error_model, relay_retries, mesh)
+            i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
+            totals = np.zeros(NUM_COUNTERS, dtype=np.int64)
+            if init_counters is not None:
+                totals += np.asarray(init_counters, dtype=np.int64)
+            total_iters = 0
+            num_chunks = -(-count // batch_size)
 
-    def dispatch(c):
-        return c, chunk_fn(i_minus_p, seed, c, error_probability,
-                           device=device)
+        def dispatch(c):
+            with tracing.span("mc.chunk", c):
+                return c, chunk_fn(i_minus_p, seed, c, error_probability,
+                                   device=device)
 
-    def tail(item):
-        c, (counters_ok, iters, counts, bundle) = item
-        counters = counters_ok + _repair_and_classify(post, i_minus_p,
-                                                      counts.get(), bundle)
-        if mesh is not None:
-            counters, iters = reduce_over_data(mesh, counters, iters)
-        return c, _Fetch(torch.cat([counters.to(torch.int64),
-                                    iters.to(torch.int64)]))
+        def tail(item):
+            c, (counters_ok, iters, counts, bundle) = item
+            with tracing.span("mc.chunk", c):
+                failed = _repair_and_classify(post, i_minus_p, counts.get(),
+                                              bundle)
+                counters = counters_ok + failed
+                if mesh is not None:
+                    counters, iters = reduce_over_data(mesh, counters, iters)
+                return c, _Fetch(torch.cat([counters.to(torch.int64),
+                                            iters.to(torch.int64)]))
 
-    def finish(item):
-        nonlocal totals, total_iters
-        c, fetch = item
-        host = fetch.get()
-        counters = host[:NUM_COUNTERS]
-        chunk_iters = int(host[NUM_COUNTERS:].sum())
-        totals += counters
-        total_iters += chunk_iters
-        if progress is not None:
-            progress(c, num_chunks, counters, chunk_iters)
+        def finish(item):
+            nonlocal totals, total_iters
+            c, fetch = item
+            with tracing.span("mc.chunk", c):
+                host = fetch.get()
+                counters = host[:NUM_COUNTERS]
+                chunk_iters = int(host[NUM_COUNTERS:].sum())
+                totals += counters
+                total_iters += chunk_iters
+            if progress is not None:
+                with tracing.span(tracing.OUTSIDE):
+                    progress(c, num_chunks, counters, chunk_iters)
 
-    # a one-deep pipeline: chunk c's tail is queued after chunk c + 1's
-    # device half, and its counters are read after chunk c + 1's tail is
-    # queued
-    pending = queued = None
-    for c in range(start_chunk, num_chunks + 1):
-        out = dispatch(c) if c < num_chunks else None
-        if pending is not None:
-            done = tail(pending)
-            if queued is not None:
-                finish(queued)
-            queued = done
-        pending = out
-    if queued is not None:
-        finish(queued)
+        # a one-deep pipeline: chunk c's tail is queued after chunk c + 1's
+        # device half, and its counters are read after chunk c + 1's tail is
+        # queued
+        pending = queued = None
+        for c in range(start_chunk, num_chunks + 1):
+            out = dispatch(c) if c < num_chunks else None
+            if pending is not None:
+                done = tail(pending)
+                if queued is not None:
+                    finish(queued)
+                queued = done
+            pending = out
+        if queued is not None:
+            finish(queued)
     return totals, total_iters

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from qec_ldpc_tpu_torch import native
+from qec_ldpc_tpu_torch import native, tracing
 from qec_ldpc_tpu_torch.codes import gf2_rref
 from qec_ldpc_tpu_torch.decoder.decode import (
     CONVERGENCE_FAIL_X,
@@ -78,11 +78,12 @@ def make_rank_basis_test(code, device: torch.device | str,
     """
     if logical_test not in ("reference", "physical"):
         raise ValueError(f"unknown logical_test {logical_test!r}")
-    if hasattr(code, "hx_stab"):  # lifted families: one convention
-        return rank_basis_test(code.hx_stab, code.hz_stab, device)
-    if logical_test == "physical":
-        return rank_basis_test(code.pcm_z, code.pcm_x, device)
-    return rank_basis_test(code.pcm_x, code.pcm_z, device)
+    with tracing.span("setup.logical"):
+        if hasattr(code, "hx_stab"):  # lifted families: one convention
+            return rank_basis_test(code.hx_stab, code.hz_stab, device)
+        if logical_test == "physical":
+            return rank_basis_test(code.pcm_z, code.pcm_x, device)
+        return rank_basis_test(code.pcm_x, code.pcm_z, device)
 
 
 def _sector_logical(basis: torch.Tensor, pivots: torch.Tensor,

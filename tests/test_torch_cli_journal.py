@@ -2,7 +2,7 @@
 (harness/debug.py) against the JAX package's: the same appends give the
 same bytes, resume states agree on duplicates and torn lines, array dumps
 are byte for byte the same, and ``trace`` writes a trace file (or
-nothing)."""
+nothing) and reports the spans."""
 
 import json
 import os
@@ -13,6 +13,7 @@ import torch
 
 from qec_ldpc_tpu.harness import debug as jax_debug
 from qec_ldpc_tpu.harness.journal import Journal as JaxJournal
+from qec_ldpc_tpu_torch import tracing
 from qec_ldpc_tpu_torch.harness import Journal, debug
 
 torch.set_num_threads(1)
@@ -111,11 +112,14 @@ def test_write_array_rejects_3d(tmp_path):
 
 def test_trace_writes_a_trace(tmp_path):
     log_dir = tmp_path / "prof"
-    with debug.trace(str(log_dir)):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+    with debug.trace(str(log_dir)) as spans:
+        with tracing.span("mc.decode"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
     assert len(files) == 1
-    assert "aten::mm" in (log_dir / files[0]).read_text()
+    text = (log_dir / files[0]).read_text()
+    assert "aten::mm" in text and "mc.decode" in text
+    assert [s[0] for s in spans.spans] == ["mc.decode"]
 
 
 def test_trace_none_writes_nothing(tmp_path):
@@ -126,13 +130,16 @@ def test_trace_none_writes_nothing(tmp_path):
 
 
 def test_section_timers():
-    timers = debug.SectionTimers()
-    for _ in range(3):
-        with timers.section("decode"):
-            pass
-    with timers.section("init"):
-        pass
-    assert timers.counts == {"decode": 3, "init": 1}
-    lines = timers.report().splitlines()
+    """The reference's section timers are the recorder's spans: ``report()``
+    gives each name's self milliseconds and calls, then the counters."""
+    with tracing.recording() as rec:
+        for _ in range(3):
+            with tracing.span("decode"):
+                pass
+        with tracing.span("init"):
+            tracing.count("builds", 2)
+    assert [s[0] for s in rec.spans] == ["decode"] * 3 + ["init"]
+    lines = rec.report().splitlines()
     assert lines[0].startswith("decode: ") and "over 3 call(s)" in lines[0]
-    assert lines[1].startswith("init: ")
+    assert lines[1].startswith("init: ") and "over 1 call(s)" in lines[1]
+    assert lines[2] == "builds: 2"

@@ -14,8 +14,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "qec_ldpc_tpu_torch"
 PORT_FILES = sorted(p for p in PORT.rglob("*.py") if "_build" not in p.parts) + [
-    ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "profile_cells.py",
-    ROOT / "workloads.py",
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "workloads.py",
     # the rank functions that spawned processes import, and the OSD-0
     # kernel's corner cases, which the card's test run imports
     ROOT / "tests" / "torch_mesh_workers.py", ROOT / "tests" / "osd0_cases.py",

@@ -1,9 +1,8 @@
-"""The Monte-Carlo workloads of the port's chip runs, defined once:
-``chip_smoke.py`` drives and gates them, ``profile_cells.py`` profiles them.
-Plain constants, and helpers that import the port only when called, so that
-``profile_cells.py`` also runs against an earlier tree of the port.  At
-batch 2048, 8 chunks per host fetch, except the OSD quality mode, which
-reads the host once per chunk by design."""
+"""The Monte-Carlo workloads of the port's chip runs, which
+``chip_smoke.py`` drives and gates.  Plain constants, and helpers that
+import the port only when called.  At batch 2048, 8 chunks per host fetch,
+except the OSD quality mode, which reads the host once per chunk by
+design."""
 
 BATCH = 2048
 STEPS_PER_CALL = 8
@@ -77,7 +76,6 @@ SHARDED_RELAY_REFERENCE_CHUNKS = 16
 # sharded_step_bench.py's batch 256, at the main path's SHARDED_BATCH and at
 # 2048
 K8_BATCHES = (256, SHARDED_BATCH, 2048)
-K8_STEPS = 30  # steps per profiled loop (profile_cells.py --cells k8)
 
 # the lane-sharded lifted engine: the BB cell of
 # benchmarks/large_code_scaling.py:154-177, [[756,16,34]] (lift group
