@@ -41,7 +41,9 @@ exit) if any phase fails:
   5. main    sum-product run_monte_carlo on the headline workload, 64
              chunks of 2048, after a warm-up that may synchronise with the
              host only once per group of chunks; every chunk must launch K1
-             twice (X and Z), and the corrected fraction must lie within
+             twice (X and Z), as the profiler sees the card run it (a chunk
+             replays a CUDA graph, which no wrapper counts), and the same run
+             again must count the same; the corrected fraction must lie within
              4 sigma + 1e-4 of the reference's 0.99539 (the gate of bench.py)
   6. check   K2 (min-sum): [[610,61]] X and Z at batch 2048 with early exit
              and fixed 100 iterations, [[42]] at 30 fixed iterations, a
@@ -268,6 +270,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -647,6 +650,43 @@ def read_counts() -> dict[str, int]:
             "osd0": osd0_cuda.launches,
             "sharded_min_sum_step": sharded_step_cuda.launches,
             "peak_chain": peak_chain_cuda.launches}
+
+
+#: the device kernel behind each count of :func:`read_counts` (the wide
+#: route of min_sum.cu launches ``min_sum_kernel`` too)
+DEVICE_KERNELS = {"bp_sum_product": "bp_sum_product_kernel",
+                  "min_sum": "min_sum_kernel",
+                  "layered_min_sum": "layered_min_sum_kernel",
+                  "lifted_min_sum": "lifted_min_sum_kernel",
+                  "lifted_bp": "lifted_bp_kernel",
+                  "osd0": "osd0_kernel",
+                  "sharded_min_sum_step": "sharded_step_kernel",
+                  "peak_chain": "peak_chain_kernel"}
+
+
+def device_launches(fn) -> dict[str, int]:
+    """Launches of each kernel of DEVICE_KERNELS that the card ran in
+    ``fn()``, from torch.profiler's device events: the kernels of a
+    replayed CUDA graph count too, which the wrappers' counts cannot see.
+    A session that recorded none of them is taken again, up to three
+    sessions (see :func:`device_ms`)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # a kernel's key is its signature, e.g. "void (anonymous
+        # namespace)::min_sum_kernel<3, true>(...)"
+        on_device = [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA]
+        counts = {k: sum(e.count for e in on_device
+                         if re.search(rf"(?<!\w){name}(?!\w)", e.key))
+                  for k, name in DEVICE_KERNELS.items()}
+        if any(counts.values()):
+            break
+    return counts
 
 
 def bound(graph, batch: int, iters: int, algorithm: str,
@@ -1051,38 +1091,50 @@ def monte_carlo(label: str, graphs: CodeGraphs, weight: int, p_err: float,
                 cfg: BPConfig, chunks: int, seed: int, logical_test,
                 device, relay_retries: int = 0, steps_per_call=STEPS_PER_CALL,
                 error_model: str = "weight"):
-    """One main-path run through ``run_monte_carlo`` with every launch
-    count set to 0 just before it and read just after.  A 2-group warm-up
-    first counts the host syncs.  Returns (counters, lane_iters, seconds,
-    launch counts, warm-up syncs)."""
+    """One main-path run through ``run_monte_carlo``, timed, with every
+    launch count set to 0 just before it, then the same run again under
+    the profiler, which must count the same and gives the launches the
+    card ran (:func:`device_launches`); the wrappers' counts of both runs
+    are printed as ``host_calls``.  A 2-group warm-up first counts the host
+    syncs.  Returns (counters, lane_iters, seconds, device launches,
+    warm-up syncs)."""
     syncs = count_syncs(lambda: run_monte_carlo(
         graphs, weight, 4 * BATCH, p_err, cfg, seed=0, batch_size=BATCH,
         steps_per_call=2, relay_retries=relay_retries,
         i_minus_p=logical_test, error_model=error_model, device=device))
+
+    def run():
+        return run_monte_carlo(
+            graphs, weight, chunks * BATCH, p_err, cfg, seed=seed,
+            batch_size=BATCH, steps_per_call=steps_per_call,
+            relay_retries=relay_retries, i_minus_p=logical_test,
+            error_model=error_model, device=device)
+
     reset_counts()
     t0 = time.perf_counter()
-    counters, lane_iters = run_monte_carlo(
-        graphs, weight, chunks * BATCH, p_err, cfg, seed=seed,
-        batch_size=BATCH, steps_per_call=steps_per_call,
-        relay_retries=relay_retries, i_minus_p=logical_test,
-        error_model=error_model, device=device)
+    counters, lane_iters = run()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = read_counts()
+    again = []
+    counts = device_launches(lambda: again.append(run()))
+    check(np.array_equal(again[0][0], counters) and again[0][1] == lane_iters,
+          f"{label}: the same run counted otherwise")
+    calls = read_counts()
     tested = int(counters[C_TESTED])
     say("main", path=label, samples=tested, seconds=f"{seconds:.4f}",
         samples_per_s=f"{tested / seconds:.1f}",
         lane_iters_per_s=f"{lane_iters / seconds:.1f}",
         corrected_fraction=f"{counters[C_CORRECTED] / tested:.6f}",
         warmup_host_syncs=syncs,
-        launches=json.dumps({k: v for k, v in counts.items() if v}))
+        launches=json.dumps({k: v for k, v in counts.items() if v}),
+        host_calls=json.dumps({k: v for k, v in calls.items() if v}))
     check(tested == chunks * BATCH, f"{label}: tested {tested}")
     return counters, lane_iters, seconds, counts, syncs
 
 
 def check_launches(label: str, counts: dict, kernel: str, chunks: int) -> int:
     """The run launched ``kernel`` twice per chunk (X and Z) and nothing
-    else; returns its count."""
+    else (``counts`` from :func:`device_launches`); returns its count."""
     expected = {k: 0 for k in counts}
     expected[kernel] = 2 * chunks
     check(counts == expected, f"{label}: launch counts {counts}, expected "
@@ -2640,7 +2692,10 @@ def main() -> int:
         PROBE_CHUNKS, 3, make_rank_basis_test(probe.code, device), device,
         steps_per_call=2)
     check(syncs <= 2, f"probe: {syncs} host syncs in 2 groups")
-    launches["min_sum_wide"] = check_launches("probe", counts, "min_sum_wide",
+    calls = read_counts()
+    check(calls["min_sum_wide"] > 0 and calls["min_sum"] == 0,
+          f"probe: not the wide route ({calls})")
+    launches["min_sum_wide"] = check_launches("probe", counts, "min_sum",
                                               PROBE_CHUNKS)
     gate_two_proportion(f"min-sum P={PROBE_P}", counters, PROBE_CORRECTED)
 
@@ -2800,8 +2855,8 @@ def main() -> int:
         warmup_host_syncs=syncs, lifted_min_sum_launches=counts["lifted_min_sum"])
     check(counts["lifted_min_sum"] > 2 * GROSS_RELAY_CHUNKS,
           "gross relay launched no damped K5 retries")
-    check(counts["min_sum"] == counts["min_sum_wide"] == 0,
-          "gross relay took a circulant route")
+    # both circulant routes launch min_sum_kernel
+    check(counts["min_sum"] == 0, "gross relay took a circulant route")
     sx, sz = syndromes(gross, 0, 6, device, p_err=GROSS_RELAY_P)
     check_repaired_lanes(gross, sx, sz, GROSS_RELAY_P, 6, relay_cfg,
                          GROSS_RELAY_RETRIES, device)

@@ -12,7 +12,9 @@ from (seed, global chunk id): one for the errors and, with
 ``relay_retries > 0``, one per relay retry and graph for the damping draws
 (:func:`relay_draws`), so the statistics do not depend on how chunks are
 grouped.  Counters stay on the device for a whole group of
-``steps_per_call`` chunks; the host reads them once per group.
+``steps_per_call`` chunks; the host reads them once per group.  On one
+CUDA device without relay a chunk is one replay of a CUDA graph of the
+whole pipeline (:class:`_ChunkGraph`).
 
 With a ``mesh`` (parallel/mesh.py) every rank runs the same call.  On a
 data-only mesh (:func:`make_sharded_chunk`) each rank decodes
@@ -72,6 +74,7 @@ from qec_ldpc_tpu_torch.sampling.classify import (
     make_rank_basis_test,
 )
 from qec_ldpc_tpu_torch.sampling.errors import (
+    generator_seed,
     sample_depolarizing_errors,
     sample_weight_w_errors,
     sample_weight_w_errors_dynamic,
@@ -241,6 +244,96 @@ def _chunk_group(graphs: CodeGraphs, i_minus_p, chunk_ids, seed: int,
     return counters, iters
 
 
+def graph_path(device: torch.device, mesh: Mesh | None,
+               relay_retries: int) -> bool:
+    """Whether :func:`run_monte_carlo` replays a captured chunk: on one CUDA
+    device, with no mesh and no relay (relay reads a flag from the device
+    per retry, which no graph can hold)."""
+    return device.type == "cuda" and mesh is None and relay_retries == 0
+
+
+#: the stream each device captures on, kept as ``torch.cuda.graph`` keeps
+#: its own: a stream's first matrix product allocates it a cuBLAS workspace
+#: (32 MiB on the H100) for the life of the process
+_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+
+
+class _ChunkGraph:
+    """One chunk of the counting path, ``body(generator) -> (counters,
+    iters)`` (:func:`_chunk_body`) plus the group's accumulation, captured
+    as a CUDA graph on one device and replayed for the later chunks of one
+    call.
+
+    The graph draws from a generator registered with it, reseeded before
+    each replay by the chunk's seed (``manual_seed`` restarts its Philox
+    offset at 0), so a replay draws what the chunk's fresh generator
+    (:func:`chunk_generator`) draws.  It accumulates into static tensors
+    and allocates from a memory pool of its own, freed with the graph.  The
+    kernel wrappers' ``launches`` count the calls they make, the capture's
+    among them, and not the replays."""
+
+    def __init__(self, body, device: torch.device):
+        self.body, self.device = body, device
+        self.generator = torch.Generator(device=device)
+        self.counters = torch.zeros(NUM_COUNTERS, dtype=torch.int64,
+                                    device=device)
+        self.iters = torch.zeros(2, dtype=torch.int64, device=device)
+        self.graph = self.pool = None
+
+    def __del__(self):
+        self.graph = None  # before its pool
+
+    def group(self, chunk_ids, seed: int):
+        """:func:`_chunk_group` through the graph: the chunks ``chunk_ids``
+        summed on the device (counters int64, iters[2] int64).  The call's
+        first chunk runs eagerly, then is captured; the next ones replay."""
+        self.counters.zero_()
+        self.iters.zero_()
+        with torch.cuda.device(self.device):
+            for c in chunk_ids:
+                with tracing.span("mc.chunk", c):
+                    if self.graph is None:
+                        self._capture(seed, c)
+                    else:
+                        self._replay(seed, c)
+        return self.counters, self.iters
+
+    def _capture(self, seed: int, chunk: int) -> None:
+        """Run chunk ``chunk`` eagerly and count it (it builds the kernels
+        and fills the per-device caches the graph then reads), then capture
+        the body on the graph's generator."""
+        stream = _CAPTURE_STREAMS.get(self.device)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[self.device] = torch.cuda.Stream(
+                self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            cnt, its = self.body(chunk_generator(seed, chunk, self.device))
+            self.counters += cnt
+            self.iters += its
+            self.pool = torch.cuda.MemPool()
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.generator)
+            graph.capture_begin(self.pool.id,
+                                capture_error_mode="thread_local")
+            try:
+                cnt, its = self.body(self.generator)
+                self.counters += cnt
+                self.iters += its
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self.graph = graph
+        tracing.count("mc.graph_captures")
+
+    def _replay(self, seed: int, chunk: int) -> None:
+        with tracing.span("mc.sample"):
+            self.generator.manual_seed(generator_seed([seed, chunk]))
+        with tracing.span("mc.launch"):
+            self.graph.replay()
+        tracing.count("mc.graph_replays")
+
+
 def reduce_over_data(mesh: Mesh, counters: torch.Tensor, iters: torch.Tensor):
     """Sum a group's (counters, iters) over the data axis: one all_reduce."""
     total = mesh.all_reduce(torch.cat([counters.to(torch.int64),
@@ -397,13 +490,32 @@ def run_monte_carlo(
     journal follows).  At ``weight == weight_cap`` the draws equal the
     static sampler's.  The graph-sharded path ignores it, as JAX's does.
 
+    On one CUDA device with no mesh and no relay (:func:`graph_path`) the
+    chunk runs as a CUDA graph: the call's first chunk runs eagerly, then
+    is captured (sample, decode, classify and the group's accumulation),
+    and every later chunk reseeds the graph's generator and replays it, so
+    the host launches one graph a chunk; the graph is dropped when the call
+    returns.  The draws, counters, lane-iterations and ``progress`` calls
+    are those of the eager chunks.
+
     Returns (counters[NUM_COUNTERS] int64 numpy, total_bp_lane_iterations).
     """
     device = torch.device(device)
     with tracing.span("mc.point"):
         with tracing.span("mc.point_setup"):
             i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
-            if mesh is None:
+            replaying = graph_path(device, mesh, relay_retries)
+            if replaying:
+                if device.index is None:
+                    device = torch.device("cuda", torch.cuda.current_device())
+                chunk = _ChunkGraph(lambda generator: _chunk_body(
+                    graphs, i_minus_p, generator, weight, error_probability,
+                    cfg, batch_size, error_model, weight_cap=weight_cap),
+                    device)
+
+                def run_group(ids):
+                    return chunk.group(ids, seed)
+            elif mesh is None:
                 def run_group(ids):
                     return _chunk_group(graphs, i_minus_p, ids, seed, (),
                                         weight, error_probability, cfg,
@@ -442,6 +554,9 @@ def run_monte_carlo(
         for gi in range(start_chunk, len(groups)):
             with tracing.span("mc.group"):
                 counters, iters = run_group(groups[gi])
+                if not replaying:
+                    # eager chunks replay no graph: the counter reads 0
+                    tracing.count("mc.graph_replays", 0)
                 both = torch.cat([counters, iters])
                 with tracing.span("mc.fetch"):
                     host = both.cpu().numpy()  # one fetch

@@ -14,13 +14,19 @@ import numpy as np
 import torch
 
 
-def seeded_generator(entropy, device: torch.device | str) -> torch.Generator:
-    """A generator on ``device`` seeded from the integers ``entropy`` alone,
-    mixed by NumPy's SeedSequence into a 64-bit seed: the port's one rule
-    for deriving a random stream (per chunk, per relay retry)."""
+def generator_seed(entropy) -> int:
+    """The 64-bit seed of the integers ``entropy``, mixed by NumPy's
+    SeedSequence: the port's one rule for deriving a random stream (per
+    chunk, per relay retry)."""
     state = np.random.SeedSequence(list(entropy)).generate_state(2, np.uint32)
+    return int(state[0]) | (int(state[1]) << 32)
+
+
+def seeded_generator(entropy, device: torch.device | str) -> torch.Generator:
+    """A generator on ``device`` seeded from the integers ``entropy`` alone
+    (:func:`generator_seed`)."""
     g = torch.Generator(device=device)
-    g.manual_seed(int(state[0]) | (int(state[1]) << 32))
+    g.manual_seed(generator_seed(entropy))
     return g
 
 

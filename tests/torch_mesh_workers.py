@@ -336,3 +336,20 @@ def failing_rank(mesh) -> None:
 def sleeping_rank(mesh) -> None:
     """Outlives any short timeout."""
     time.sleep(120)
+
+
+def recorded_run(mesh, params: tuple, seed: int, p: float, count: int,
+                 batch: int):
+    """A data-parallel min-sum run with its spans recorded: its (counters,
+    iters) and the recording's counters."""
+    from qec_ldpc_tpu_torch import tracing
+
+    torch.set_num_threads(1)
+    code = construct_code(*params)
+    with tracing.recording() as rec:
+        out = run_monte_carlo(
+            CodeGraphs.build(code), 3, count, p,
+            BPConfig(max_iters=20, algorithm="min-sum"), seed,
+            batch_size=batch, mesh=mesh, steps_per_call=2,
+            i_minus_p=make_rank_basis_test(code, "cpu"), device="cpu")
+    return out, dict(rec.counters)
