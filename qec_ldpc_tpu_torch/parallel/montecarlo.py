@@ -658,7 +658,9 @@ def _repair_and_classify(post: CSSPostprocessor | None, i_minus_p,
     classification stay on the bundle's device, where the X- and Z-failed
     lanes are found from their known counts, with no host read.  Returns
     the failed lanes' int32 counters on that device.  Counts the lanes
-    handed to OSD in ``osd.lanes``."""
+    handed to OSD in ``osd.lanes`` and the bits of their augmented systems
+    ``[H_pi | s]``, lanes x m x (n + 1) summed over the sectors, in
+    ``osd.system_bits``."""
     k, k_x, k_z = (int(v) for v in counts)
     with tracing.span("mc.osd"):
         if k == 0:
@@ -669,6 +671,9 @@ def _repair_and_classify(post: CSSPostprocessor | None, i_minus_p,
         dec = {SYNDROME_FAIL_X: dx, SYNDROME_FAIL_Z: dz}
         if post is not None:
             tracing.count("osd.lanes", k_x + k_z)
+            tracing.count("osd.system_bits",
+                          sum(kb * osd.m * (osd.n + 1)
+                              for kb, osd in ((k_x, post.x), (k_z, post.z))))
             for bit, osd, kb, syn, soft in (
                     (SYNDROME_FAIL_X, post.x, k_x, sx, soft_x),
                     (SYNDROME_FAIL_Z, post.z, k_z, sz, soft_z)):

@@ -6,7 +6,8 @@ Monte-Carlo driver (``mc.point``, ``mc.group``, ``mc.chunk``), sampling
 call (``mc.launch``), classification (``mc.classify``), OSD (``mc.osd``),
 a blocking read of the device (``mc.fetch``) and set-up (``setup.graphs``,
 ``setup.logical``, ``kernels.load``).  A counter adds up values already on
-the host (``relay.retries``, ``osd.lanes``, ``kernels.builds``, and the
+the host (``relay.retries``, ``osd.lanes``, ``osd.system_bits``: the bits of
+the augmented systems OSD eliminates, ``kernels.builds``, and the
 driver's ``mc.graph_captures`` and ``mc.graph_replays``).  Neither
 adds a device operation or a host read.
 

@@ -137,11 +137,15 @@ def test_relay_counts_its_retries(graphs, monkeypatch):
 
 def test_osd_counts_its_lanes(graphs, monkeypatch):
     orig = montecarlo._repair_and_classify
-    lanes, solves = [], []
+    lanes, solves, bits = [], [], []
 
     def counted(post, i_minus_p, counts, bundle):
         lanes.append(int(counts[1]) + int(counts[2]))
         solves.append(int(counts[1] > 0) + int(counts[2] > 0))
+        # the augmented systems [H_pi | s] of the lanes handed to OSD
+        bits.append(sum(int(k) * h.shape[0] * (h.shape[1] + 1)
+                        for k, h in ((counts[1], graphs.code.pcm_x),
+                                     (counts[2], graphs.code.pcm_z))))
         return orig(post, i_minus_p, counts, bundle)
 
     monkeypatch.setattr(montecarlo, "_repair_and_classify", counted)
@@ -149,7 +153,8 @@ def test_osd_counts_its_lanes(graphs, monkeypatch):
         osd(graphs)
     check_tree(rec)
     assert sum(lanes) > 0
-    assert rec.counters == {"osd.lanes": sum(lanes)}
+    assert rec.counters == {"osd.lanes": sum(lanes),
+                            "osd.system_bits": sum(bits)}
     chunks = by_chunk(rec)
     assert sorted(chunks) == list(range(COUNT // BATCH))
     for c, spans in chunks.items():
