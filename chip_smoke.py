@@ -14,10 +14,11 @@ line: the gross code [[144,12,12]], depolarizing p = 0.01.  Fails (non-zero
 exit) if any phase fails:
 
   1. device  needs CUDA; prints the card's name and power limit
-  2. build   compiles the eight CUDA sources (csrc/bp_sum_product.cu,
+  2. build   compiles the nine CUDA sources (csrc/bp_sum_product.cu,
              min_sum.cu, layered_min_sum.cu, lifted_min_sum.cu,
-             lifted_bp.cu, osd0.cu, sharded_min_sum_step.cu and the
-             roofline benchmark's FP32 probe peak_chain.cu) with nvcc, all
+             lifted_bp.cu, osd0.cu, sharded_min_sum_step.cu,
+             decide_classify.cu and the roofline benchmark's FP32 probe
+             peak_chain.cu) with nvcc, all
              at once, and prints ptxas's registers and spills per kernel
   3. check   K1 (sum-product) vs the plain PyTorch BP on the card:
              [[610,61]] X and Z at batch 2048, early exit and fixed 100
@@ -41,7 +42,8 @@ exit) if any phase fails:
   5. main    sum-product run_monte_carlo on the headline workload, 64
              chunks of 2048, after a warm-up that may synchronise with the
              host only once per group of chunks; every chunk must launch K1
-             twice (X and Z), as the profiler sees the card run it (a chunk
+             twice (X and Z) and the fused decide/classify kernel once, and
+             nothing else, as the profiler sees the card run it (a chunk
              replays a CUDA graph, which no wrapper counts), and the same run
              again must count the same; the corrected fraction must lie within
              4 sigma + 1e-4 of the reference's 0.99539 (the gate of bench.py)
@@ -75,8 +77,10 @@ exit) if any phase fails:
              gate for layered (corrected >= 0.99539 - 4 sigma), and min-sum
              on the P=1051 probe code (W=258, 10 iterations), held to the
              JAX package's 1861 of 2048 corrected by a two-proportion test
-             (|z| < 4); each run must launch its kernel twice per chunk and
-             synchronise at most once per group in a 2-group warm-up
+             (|z| < 4); each run must launch its kernel twice per chunk,
+             the fused decide/classify kernel once per chunk (min-sum) or
+             never (layered), and synchronise at most once per group in a
+             2-group warm-up
   9. relay   [[610,61]], W=40, p=0.02, min-sum with 16 relay retries, 8
              chunks of 2048: the BP failure rate and the repair rate are
              held to the JAX package's tuning run (509 failures in 12,288
@@ -103,7 +107,8 @@ exit) if any phase fails:
              (benchmarks/results/bicycle_gross_r3.jsonl line 2) and
              sum-product to a JAX-package CPU run (GROSS_SUM_PRODUCT) by
              two-proportion tests (|z| < 4); each run launches its kernel
-             twice per chunk and syncs at most once per group
+             twice per chunk and the fused decide/classify kernel once, and
+             syncs at most once per group
  13. relay   the gross code at p = 0.03, min-sum with 8 relay retries, 4
              chunks: K5 must launch damped retries and every repaired lane
              must satisfy its syndrome; the repair rate is printed
@@ -156,7 +161,8 @@ exit) if any phase fails:
              lane-iterations (each lane its own count, as the kernels
              count) equal the data-only ones exactly, sum-product within
              |z| < 4, every rank launches K8 once per X and Z loop
-             iteration and K2 never; the
+             iteration and K2 never (at data=2 the fused decide/classify
+             kernel once a chunk a rank, but for layered); the
              backend, collectives per iteration and host syncs per chunk
              are printed; in every graph-sharded chunk, every lane that
              reports no syndrome failure must satisfy its syndrome
@@ -245,6 +251,12 @@ exit) if any phase fails:
              each script's gates raise.  K6 is launched by none of them (no
              script decodes sum-product on a lifted code): phases 10-12
              and 26 hold it
+ 29. fused   the decide/classify kernel (csrc/decide_classify.cu) vs its
+             plain composition at the counting cells' shapes, [[610,61]] X
+             and Z sum-product at W=15 and the gross code's min-sum at
+             p = 0.01, 2048 lanes: the counters and lane-iteration sums bit
+             for bit, the kernel's time (CUDA events and profiler device
+             time) beside its byte bound, and the plain composition's time
 
 Phases 20, 21, 23, 24, 26, 27's graph demo and 28's worlds share one card
 between their ranks, and gloo stages every collective through host memory: their
@@ -292,6 +304,7 @@ from qec_ldpc_tpu_torch.decoder.decode import (
     CodeGraphs,
     decide,
     decode_batch,
+    run_decoder,
     syndrome_fail,
 )
 from qec_ldpc_tpu_torch.decoder.lifted import LiftedGraph
@@ -303,6 +316,7 @@ from qec_ldpc_tpu_torch.harness.stats import CodeStatistics, parse_reference_tex
 from qec_ldpc_tpu_torch.kernels import (
     bp_cuda,
     build,
+    classify_cuda,
     layered_cuda,
     lifted_bp_cuda,
     lifted_min_sum_cuda,
@@ -467,10 +481,11 @@ LIBRARIES = (("qec_bp", bp_cuda.SOURCES), ("qec_min_sum", min_sum_cuda.SOURCES),
              ("qec_lifted_bp", lifted_bp_cuda.SOURCES),
              ("qec_osd0", osd0_cuda.SOURCES),
              ("qec_sharded_min_sum_step", sharded_step_cuda.SOURCES),
-             ("qec_peak_chain", peak_chain_cuda.SOURCES))
+             ("qec_peak_chain", peak_chain_cuda.SOURCES),
+             ("qec_decide_classify", classify_cuda.SOURCES))
 KERNEL_MODULES = (bp_cuda, min_sum_cuda, layered_cuda, lifted_min_sum_cuda,
                   lifted_bp_cuda, osd0_cuda, sharded_step_cuda,
-                  peak_chain_cuda)
+                  peak_chain_cuda, classify_cuda)
 
 # The bound of a fixed-work decode: the larger of its float operations over
 # the H100 SXM's 67 TFLOP/s (float32 outside the tensor cores) and its bytes
@@ -638,6 +653,7 @@ def reset_counts() -> None:
     osd0_cuda.launches = 0
     sharded_step_cuda.launches = 0
     peak_chain_cuda.launches = 0
+    classify_cuda.launches = 0
 
 
 def read_counts() -> dict[str, int]:
@@ -649,7 +665,8 @@ def read_counts() -> dict[str, int]:
             "lifted_bp": lifted_bp_cuda.launches,
             "osd0": osd0_cuda.launches,
             "sharded_min_sum_step": sharded_step_cuda.launches,
-            "peak_chain": peak_chain_cuda.launches}
+            "peak_chain": peak_chain_cuda.launches,
+            "decide_classify": classify_cuda.launches}
 
 
 #: the device kernel behind each count of :func:`read_counts` (the wide
@@ -661,7 +678,8 @@ DEVICE_KERNELS = {"bp_sum_product": "bp_sum_product_kernel",
                   "lifted_bp": "lifted_bp_kernel",
                   "osd0": "osd0_kernel",
                   "sharded_min_sum_step": "sharded_step_kernel",
-                  "peak_chain": "peak_chain_kernel"}
+                  "peak_chain": "peak_chain_kernel",
+                  "decide_classify": "decide_classify_kernel"}
 
 
 def device_launches(fn) -> dict[str, int]:
@@ -1132,11 +1150,15 @@ def monte_carlo(label: str, graphs: CodeGraphs, weight: int, p_err: float,
     return counters, lane_iters, seconds, counts, syncs
 
 
-def check_launches(label: str, counts: dict, kernel: str, chunks: int) -> int:
-    """The run launched ``kernel`` twice per chunk (X and Z) and nothing
-    else (``counts`` from :func:`device_launches`); returns its count."""
+def check_launches(label: str, counts: dict, kernel: str, chunks: int,
+                   fused: bool) -> int:
+    """The run launched ``kernel`` twice per chunk (X and Z), the fused
+    decide/classify kernel once per chunk where ``fused`` (sum-product and
+    min-sum) and never otherwise, and nothing else (``counts`` from
+    :func:`device_launches`); returns ``kernel``'s count."""
     expected = {k: 0 for k in counts}
     expected[kernel] = 2 * chunks
+    expected["decide_classify"] = chunks if fused else 0
     check(counts == expected, f"{label}: launch counts {counts}, expected "
                               f"{expected}")
     return counts[kernel]
@@ -1769,6 +1791,9 @@ def mesh_phases() -> int:
                 (sharded[2][0], "bp_sum_product", 2 * SHARDED_CHUNKS)):
             want = {k: 0 for k in r[name]["launches"]}
             want[kernel] = per_chunk
+            # the fused decide/classify kernel: once a chunk, but layered
+            if kernel != "layered_min_sum":
+                want["decide_classify"] = per_chunk // 2
             check(r[name]["launches"] == want,
                   f"data=2 {name}: launches {r[name]['launches']}")
             check(r[name]["collectives"] == {"all_gather": 0,
@@ -2416,6 +2441,58 @@ def benchmarks_phase(device, smi: str) -> dict:
     return out
 
 
+def decide_classify_phase(device) -> dict:
+    """Phase 29: the fused decide/classify kernel vs its plain composition
+    (``classify_cuda.decide_classify_plain``) on one chunk of each counting
+    cell's shape, decoded by its cell's kernel: counters and lane-iteration
+    sums bit for bit, then kernel and plain timed in turns, beside the
+    kernel's byte bound (each message, error, syndrome and iteration count
+    read once).  Returns cell -> (kernel ms, plain ms, bound ms)."""
+    phase("29 decide/classify")
+    g610 = CodeGraphs.build(construct_code(*HEADLINE_CODE))
+    gross = known_bicycle_code(GROSS).build_graphs()
+    out = {}
+    for label, graphs, weight, p_err, model, cfg in (
+            ("hi610-sp-w15", g610, WEIGHT, P_ERR, "weight",
+             BPConfig(max_iters=MAX_ITERS)),
+            ("gross-ms-p01", gross, 0, GROSS_P, "depolarizing",
+             BPConfig(max_iters=MAX_ITERS, algorithm="min-sum"))):
+        tables = classify_cuda.prepare(
+            graphs, make_rank_basis_test(graphs.code, device))
+        xe, ze, sx, sz = montecarlo.sample_syndromes(
+            graphs, chunk_generator(29, 0, device), weight, p_err, BATCH,
+            model)
+        prior = np.float32(cfg.prior_factor) * np.float32(p_err)
+        (vx, itx), (vz, itz) = (run_decoder(g, s, prior, cfg)
+                                for g, s in ((graphs.x, sx), (graphs.z, sz)))
+        args = (tables, cfg, (vx, vz), (sx, sz), (xe, ze), (itx, itz))
+        counters = torch.zeros(9, dtype=torch.int64, device=device)
+        iters = torch.zeros(2, dtype=torch.int64, device=device)
+        classify_cuda.decide_classify(*args, counters, iters)
+        want, want_iters = classify_cuda.decide_classify_plain(*args)
+        torch.cuda.synchronize()
+        same = (counters.tolist() == want.tolist()
+                and iters.tolist() == want_iters.tolist())
+        say("check", kernel="decide_classify", cell=label,
+            counters=json.dumps(counters.tolist()),
+            plain=json.dumps(want.tolist()), iters=json.dumps(iters.tolist()),
+            bit_for_bit=same)
+        check(same, f"decide_classify {label}: the kernel counted "
+                    f"{counters.tolist()} {iters.tolist()}, plain "
+                    f"{want.tolist()} {want_iters.tolist()}")
+        reads = (graphs.x.num_edges + graphs.z.num_edges + 2 * graphs.code.n
+                 + graphs.x.num_checks + graphs.z.num_checks + 2)
+        bound_ms = 4 * BATCH * reads / 3.35e12 * 1e3
+        k_ms, p_ms = time_pair(
+            "decide_classify",
+            lambda: classify_cuda.decide_classify(*args, counters, iters),
+            lambda: classify_cuda.decide_classify_plain(*args), 200, 20,
+            device_kernel="decide_classify_kernel", cell=label,
+            bound_ms=round(bound_ms, 5), bound_by="bytes")
+        out[label] = (k_ms, p_ms, bound_ms)
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     # 1. device -------------------------------------------------------------
@@ -2537,7 +2614,10 @@ def main() -> int:
         "sum-product", g610, WEIGHT, P_ERR, cfg, CHUNKS, 1, logical_610, device)
     check(syncs <= 2, f"{syncs} host syncs in 2 groups (one fetch per group)")
     launches = {"bp_sum_product": check_launches("sum-product", counts,
-                                                 "bp_sum_product", CHUNKS)}
+                                                 "bp_sum_product", CHUNKS,
+                                                 fused=True)}
+    # the main paths' launches of the fused kernel, by counting cell
+    fused_launches = {"hi610-sp-w15": counts["decide_classify"]}
     stats = CodeStatistics.from_counters(
         g610.code, 1, WEIGHT, counters, int(seconds * 1e6),
         total_bp_iterations=lane_iters)
@@ -2682,7 +2762,8 @@ def main() -> int:
         counters, _, _, counts, syncs = monte_carlo(
             label, g610, WEIGHT, P_ERR, c, CHUNKS, 2, logical_610, device)
         check(syncs <= 2, f"{label}: {syncs} host syncs in 2 groups")
-        launches[kernel] = check_launches(label, counts, kernel, CHUNKS)
+        launches[kernel] = check_launches(label, counts, kernel, CHUNKS,
+                                          fused=kernel == "min_sum")
         gate_headline(label, counters, two_sided=False)
 
     probe_cfg = BPConfig(max_iters=PROBE_ITERS, check_every=10,
@@ -2696,7 +2777,7 @@ def main() -> int:
     check(calls["min_sum_wide"] > 0 and calls["min_sum"] == 0,
           f"probe: not the wide route ({calls})")
     launches["min_sum_wide"] = check_launches("probe", counts, "min_sum",
-                                              PROBE_CHUNKS)
+                                              PROBE_CHUNKS, fused=True)
     gate_two_proportion(f"min-sum P={PROBE_P}", counters, PROBE_CORRECTED)
 
     # 9. relay ------------------------------------------------------------------
@@ -2833,7 +2914,10 @@ def main() -> int:
             label, gross, 0, GROSS_P, c, CHUNKS, 5, logical_gross, device,
             error_model="depolarizing")
         check(syncs <= 2, f"{label}: {syncs} host syncs in 2 groups")
-        launches[kernel] = check_launches(label, counts, kernel, CHUNKS)
+        launches[kernel] = check_launches(label, counts, kernel, CHUNKS,
+                                          fused=True)
+        if kernel == "lifted_min_sum":
+            fused_launches["gross-ms-p01"] = counts["decide_classify"]
         gate_two_proportion(label, counters, reference)
 
     # 13. relay on the gross code --------------------------------------------------
@@ -2860,6 +2944,8 @@ def main() -> int:
     sx, sz = syndromes(gross, 0, 6, device, p_err=GROSS_RELAY_P)
     check_repaired_lanes(gross, sx, sz, GROSS_RELAY_P, 6, relay_cfg,
                          GROSS_RELAY_RETRIES, device)
+
+    fused_times = decide_classify_phase(device)
 
     osd_times = osd_phases(device, g610, gross, bb756, logical_610,
                            logical_gross, worst, times, launches)
@@ -2947,6 +3033,21 @@ def main() -> int:
         # no single PyTorch call computes a min-sum iteration
         "library_ms": None,
     })
+    for cell, (k_ms, p_ms, bound_ms) in fused_times.items():
+        rows.append({
+            "name": f"decide_classify {cell}",
+            "route": "cuda",
+            "source": "qec_ldpc_tpu_torch/csrc/decide_classify.cu",
+            # the JAX package leaves decisions and classification to XLA
+            "replaces": None,
+            "launches": fused_launches[cell],
+            "max_abs_err": 0,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -172,13 +172,14 @@ def lane_sort(syndrome: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return perm, torch.argsort(perm)
 
 
-def _decode_one_graph(graph: CirculantGraph | LiftedGraph,
-                      syndrome: torch.Tensor, prior: np.float32, cfg: BPConfig,
-                      plain: bool = False):
-    """One graph: ``(decisions, conv_fail, syn_fail, lane_iters, soft)``,
-    with ``lane_iters`` (batch,) each lane's executed iterations and
-    ``soft`` None unless ``cfg.return_soft``.  ``plain``: run the plain
-    PyTorch loop on any device, every lane counting the loop's iterations.
+def run_decoder(graph: CirculantGraph | LiftedGraph, syndrome: torch.Tensor,
+                prior: np.float32, cfg: BPConfig, plain: bool = False):
+    """One graph through ``cfg.algorithm``'s kernel wrapper: ``(out,
+    lane_iters)``, ``out`` the final check-indexed messages (sum-product:
+    probabilities, min-sum: LLRs) or layered min-sum's posteriors, and
+    ``lane_iters`` (batch,) each lane's executed iterations.  ``plain``: run
+    the plain PyTorch loop on any device, every lane counting the loop's
+    iterations.
 
     With ``cfg.kernel_sort_lanes`` the kernel decodes the lanes in
     :func:`lane_sort` order and its outputs go back to the original order
@@ -213,6 +214,17 @@ def _decode_one_graph(graph: CirculantGraph | LiftedGraph,
         lane_iters = lane_iters.expand(syn_k.shape[1])
     if inv is not None:
         out, lane_iters = out[:, inv], lane_iters[inv]
+    return out, lane_iters
+
+
+def _decode_one_graph(graph: CirculantGraph | LiftedGraph,
+                      syndrome: torch.Tensor, prior: np.float32, cfg: BPConfig,
+                      plain: bool = False):
+    """One graph: ``(decisions, conv_fail, syn_fail, lane_iters, soft)``,
+    with ``lane_iters`` (batch,) each lane's executed iterations and
+    ``soft`` None unless ``cfg.return_soft``; ``plain`` as in
+    :func:`run_decoder`."""
+    out, lane_iters = run_decoder(graph, syndrome, prior, cfg, plain)
     if cfg.algorithm == "layered-min-sum":
         # layered keeps posteriors: the decision is q <= 0, and "failed to
         # converge" is "the decision violates the syndrome"

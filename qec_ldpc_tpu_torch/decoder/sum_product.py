@@ -42,7 +42,7 @@ class BPConfig:
     ``kernel``, ``kernel_tile_batch`` and ``kernel_roll_impl`` (TPU kernel
     choices) are kept only so the two configs compare equal;
     ``kernel_sort_lanes`` sorts the lanes by syndrome weight around the
-    kernel call (``decode._decode_one_graph``), as JAX does."""
+    kernel call (``decode.run_decoder``), as JAX does."""
 
     max_iters: int = 100
     check_every: int = 10

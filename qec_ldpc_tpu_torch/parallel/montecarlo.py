@@ -14,7 +14,10 @@ from (seed, global chunk id): one for the errors and, with
 grouped.  Counters stay on the device for a whole group of
 ``steps_per_call`` chunks; the host reads them once per group.  On one
 CUDA device without relay a chunk is one replay of a CUDA graph of the
-whole pipeline (:class:`_ChunkGraph`).
+whole pipeline (:class:`_ChunkGraph`).  On a CUDA device without relay,
+for sum-product and min-sum under a rank-basis logical test
+(:func:`fused_path`), one kernel takes a chunk from the decoders' final
+messages to its counters (kernels/classify_cuda.py).
 
 With a ``mesh`` (parallel/mesh.py) every rank runs the same call.  On a
 data-only mesh (:func:`make_sharded_chunk`) each rank decodes
@@ -62,10 +65,12 @@ from qec_ldpc_tpu_torch.decoder.decode import (
     CodeGraphs,
     DecodeResult,
     decode_batch,
+    run_decoder,
 )
 from qec_ldpc_tpu_torch.decoder.osd import CSSPostprocessor, splice
 from qec_ldpc_tpu_torch.decoder.relay import RelayDraws, relay_decode_batch
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig
+from qec_ldpc_tpu_torch.kernels import classify_cuda
 from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, Mesh
 from qec_ldpc_tpu_torch.sampling.classify import (
     NUM_COUNTERS,
@@ -172,14 +177,56 @@ def _sample_and_decode(graphs: CodeGraphs, generator: torch.Generator,
     return xe_i, ze_i, sx, sz, res
 
 
+def fused_path(device: torch.device, relay_retries: int, cfg: BPConfig,
+               i_minus_p) -> bool:
+    """Whether a counting chunk decides and classifies in one kernel
+    (``classify_cuda.decide_classify``): on a CUDA device, with no relay
+    (whose retries replace lanes' decisions), for sum-product or min-sum
+    (layered min-sum decides from posteriors) under a rank-basis logical
+    test.  A configuration ``decode_batch`` refuses (the TPU's "mxu"
+    routing) takes the other path, which refuses it."""
+    return (device.type == "cuda" and relay_retries == 0
+            and cfg.algorithm in classify_cuda.ALGORITHMS
+            and cfg.kernel_roll_impl != "mxu"
+            and isinstance(i_minus_p, RankBasisTest))
+
+
 def _chunk_body(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
                 weight: int, error_probability: float, cfg: BPConfig,
                 batch: int, error_model: str, relay_retries: int = 0,
                 draws: RelayDraws | None = None,
-                weight_cap: int | None = None):
-    """Sample + decode + classify one batch.  Returns device tensors
-    (counters[NUM_COUNTERS] int32, iters[2]) with iters the executed BP
-    lane-iterations for [X, Z], relay retries included."""
+                weight_cap: int | None = None, *, into=None):
+    """Sample + decode + classify one batch, added into ``into``, a pair of
+    int64 device accumulators (counters[NUM_COUNTERS], iters[2]), fresh
+    zeros when None, which it returns; iters are the executed BP
+    lane-iterations for [X, Z], relay retries included.
+
+    Where :func:`fused_path` holds, the decoders' final messages go to
+    ``classify_cuda.decide_classify`` (its tables from ``prepare``, made in
+    the point's set-up), which adds the chunk into the accumulators; each
+    chunk so counted adds 1 to the counter ``classify.fused`` (nothing
+    while a CUDA graph captures it), each chunk of the other path 0."""
+    if into is None:
+        into = (torch.zeros(NUM_COUNTERS, dtype=torch.int64,
+                            device=generator.device),
+                torch.zeros(2, dtype=torch.int64, device=generator.device))
+    if fused_path(generator.device, relay_retries, cfg, i_minus_p):
+        xe_i, ze_i, sx, sz = sample_syndromes(
+            graphs, generator, weight, error_probability, batch, error_model,
+            weight_cap)
+        prior = np.float32(cfg.prior_factor) * np.float32(error_probability)
+        decoded = []
+        for graph, syndrome in ((graphs.x, sx), (graphs.z, sz)):
+            with tracing.span("mc.decode"):
+                decoded.append(run_decoder(graph, syndrome, prior, cfg))
+        (vx, itx), (vz, itz) = decoded
+        with tracing.span("mc.classify"):
+            classify_cuda.decide_classify(
+                classify_cuda.prepare(graphs, i_minus_p), cfg, (vx, vz),
+                (sx, sz), (xe_i, ze_i), (itx, itz), *into)
+        if not torch.cuda.is_current_stream_capturing():
+            tracing.count("classify.fused")
+        return into
     xe_i, ze_i, _, _, res = _sample_and_decode(
         graphs, generator, weight, error_probability, cfg, batch, error_model,
         relay_retries, draws, weight_cap)
@@ -189,7 +236,10 @@ def _chunk_body(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
                                   res.decisions_z.to(torch.int32),
                                   res.error_code)
     iters = torch.stack([res.iter_samples_x, res.iter_samples_z])
-    return counters, iters
+    tracing.count("classify.fused", 0)
+    into[0].add_(counters)
+    into[1].add_(iters)
+    return into
 
 
 def _effective_spc(num_chunks: int, steps_per_call: int) -> int:
@@ -233,14 +283,12 @@ def _chunk_group(graphs: CodeGraphs, i_minus_p, chunk_ids, seed: int,
     iters = torch.zeros(2, dtype=torch.int64, device=device)
     for c in chunk_ids:
         with tracing.span("mc.chunk", c):
-            cnt, its = _chunk_body(graphs, i_minus_p,
-                                   chunk_generator(seed, c, device, *shard),
-                                   weight, error_probability, cfg, batch,
-                                   error_model, relay_retries,
-                                   relay_draws(seed, c, device, *shard)
-                                   if relay_retries > 0 else None, weight_cap)
-            counters += cnt
-            iters += its
+            _chunk_body(graphs, i_minus_p,
+                        chunk_generator(seed, c, device, *shard), weight,
+                        error_probability, cfg, batch, error_model,
+                        relay_retries, relay_draws(seed, c, device, *shard)
+                        if relay_retries > 0 else None, weight_cap,
+                        into=(counters, iters))
     return counters, iters
 
 
@@ -259,10 +307,10 @@ _CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
 
 
 class _ChunkGraph:
-    """One chunk of the counting path, ``body(generator) -> (counters,
-    iters)`` (:func:`_chunk_body`) plus the group's accumulation, captured
-    as a CUDA graph on one device and replayed for the later chunks of one
-    call.
+    """One chunk of the counting path, ``body(generator, into)``
+    (:func:`_chunk_body`, adding the chunk into the group's accumulators
+    ``into``), captured as a CUDA graph on one device and replayed for the
+    later chunks of one call.
 
     The graph draws from a generator registered with it, reseeded before
     each replay by the chunk's seed (``manual_seed`` restarts its Philox
@@ -270,7 +318,8 @@ class _ChunkGraph:
     (:func:`chunk_generator`) draws.  It accumulates into static tensors
     and allocates from a memory pool of its own, freed with the graph.  The
     kernel wrappers' ``launches`` count the calls they make, the capture's
-    among them, and not the replays."""
+    among them, and not the replays; a replay of a capture that launched
+    the fused decide/classify kernel adds 1 to ``classify.fused``."""
 
     def __init__(self, body, device: torch.device):
         self.body, self.device = body, device
@@ -279,6 +328,7 @@ class _ChunkGraph:
                                     device=device)
         self.iters = torch.zeros(2, dtype=torch.int64, device=device)
         self.graph = self.pool = None
+        self.fused = False
 
     def __del__(self):
         self.graph = None  # before its pool
@@ -307,23 +357,22 @@ class _ChunkGraph:
             stream = _CAPTURE_STREAMS[self.device] = torch.cuda.Stream(
                 self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
+        into = (self.counters, self.iters)
         with torch.cuda.stream(stream):
-            cnt, its = self.body(chunk_generator(seed, chunk, self.device))
-            self.counters += cnt
-            self.iters += its
+            self.body(chunk_generator(seed, chunk, self.device), into)
             self.pool = torch.cuda.MemPool()
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(self.generator)
+            fused_launches = classify_cuda.launches
             graph.capture_begin(self.pool.id,
                                 capture_error_mode="thread_local")
             try:
-                cnt, its = self.body(self.generator)
-                self.counters += cnt
-                self.iters += its
+                self.body(self.generator, into)
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(self.device).wait_stream(stream)
         self.graph = graph
+        self.fused = classify_cuda.launches > fused_launches
         tracing.count("mc.graph_captures")
 
     def _replay(self, seed: int, chunk: int) -> None:
@@ -332,6 +381,7 @@ class _ChunkGraph:
         with tracing.span("mc.launch"):
             self.graph.replay()
         tracing.count("mc.graph_replays")
+        tracing.count("classify.fused", int(self.fused))
 
 
 def reduce_over_data(mesh: Mesh, counters: torch.Tensor, iters: torch.Tensor):
@@ -371,7 +421,7 @@ def mc_chunk(graphs: CodeGraphs, i_minus_p, seed: int, chunk: int,
     samples of global chunk ``chunk`` from the generators of (seed, chunk),
     decoded (relay-repaired when ``relay_retries > 0``) and classified.
     ``i_minus_p`` and ``weight_cap`` as in :func:`run_monte_carlo`.
-    Returns device tensors (counters[NUM_COUNTERS] int32, iters[2]), iters
+    Returns int64 device tensors (counters[NUM_COUNTERS], iters[2]), iters
     the executed lane-iterations for [X, Z]."""
     device = torch.device(device)
     return _chunk_body(graphs, _resolve_logical_test(graphs, i_minus_p, device),
@@ -496,7 +546,9 @@ def run_monte_carlo(
     and every later chunk reseeds the graph's generator and replays it, so
     the host launches one graph a chunk; the graph is dropped when the call
     returns.  The draws, counters, lane-iterations and ``progress`` calls
-    are those of the eager chunks.
+    are those of the eager chunks.  Where :func:`fused_path` holds too,
+    the graph's decisions and classification are one kernel, whose tables
+    are made once a point.
 
     Returns (counters[NUM_COUNTERS] int64 numpy, total_bp_lane_iterations).
     """
@@ -504,14 +556,16 @@ def run_monte_carlo(
     with tracing.span("mc.point"):
         with tracing.span("mc.point_setup"):
             i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
+            if fused_path(device, relay_retries, cfg, i_minus_p):
+                classify_cuda.prepare(graphs, i_minus_p)  # the chunks' tables
             replaying = graph_path(device, mesh, relay_retries)
             if replaying:
                 if device.index is None:
                     device = torch.device("cuda", torch.cuda.current_device())
-                chunk = _ChunkGraph(lambda generator: _chunk_body(
+                chunk = _ChunkGraph(lambda generator, into: _chunk_body(
                     graphs, i_minus_p, generator, weight, error_probability,
-                    cfg, batch_size, error_model, weight_cap=weight_cap),
-                    device)
+                    cfg, batch_size, error_model, weight_cap=weight_cap,
+                    into=into), device)
 
                 def run_group(ids):
                     return chunk.group(ids, seed)

@@ -107,8 +107,9 @@ def test_plain_run_spans(graphs):
     for name, _, _, parent, _ in rec.spans:
         if name == tracing.OUTSIDE:
             assert rec.spans[parent][0] == "mc.point"
-    # the CPU runs every chunk eagerly: no capture, no replay
-    assert rec.counters == {"mc.graph_replays": 0}
+    # the CPU runs every chunk eagerly: no capture, no replay, and no
+    # fused classification
+    assert rec.counters == {"mc.graph_replays": 0, "classify.fused": 0}
 
 
 def test_relay_counts_its_retries(graphs, monkeypatch):
@@ -126,7 +127,7 @@ def test_relay_counts_its_retries(graphs, monkeypatch):
     check_tree(rec)
     assert sum(used) > 0
     assert rec.counters == {"relay.retries": sum(used),
-                            "mc.graph_replays": 0}
+                            "mc.graph_replays": 0, "classify.fused": 0}
     for c, spans in sorted(by_chunk(rec).items()):
         assert spans["mc.relay"] == 2
         # one kernel call per retry, one flag read per retry and graph
