@@ -75,7 +75,7 @@ from qec_ldpc_tpu_torch.codes import find_code_params, known_bicycle_code  # noq
 from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs  # noqa: E402
 from qec_ldpc_tpu_torch.decoder import min_sum  # noqa: E402
 from qec_ldpc_tpu_torch.kernels import min_sum_cuda  # noqa: E402
-from qec_ldpc_tpu_torch.parallel.montecarlo import (  # noqa: E402
+from qec_ldpc_tpu_torch.parallel.chunk import (  # noqa: E402
     chunk_generator,
     sample_syndromes,
 )

@@ -71,7 +71,7 @@ from qec_ldpc_tpu_torch.kernels import (  # noqa: E402
     sharded_step_cuda,
 )
 from qec_ldpc_tpu_torch.parallel import make_graph_sharded_chunk, spawn  # noqa: E402
-from qec_ldpc_tpu_torch.parallel.montecarlo import (  # noqa: E402
+from qec_ldpc_tpu_torch.parallel.chunk import (  # noqa: E402
     chunk_generator,
     sample_syndromes,
 )

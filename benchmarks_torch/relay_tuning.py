@@ -55,7 +55,7 @@ from qec_ldpc_tpu_torch.decoder.decode import (  # noqa: E402
     SYNDROME_FAIL_Z,
 )
 from qec_ldpc_tpu_torch.decoder.relay import relay_decode_batch  # noqa: E402
-from qec_ldpc_tpu_torch.parallel.montecarlo import (  # noqa: E402
+from qec_ldpc_tpu_torch.parallel.chunk import (  # noqa: E402
     chunk_generator,
     relay_draws,
     sample_syndromes,

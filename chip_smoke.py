@@ -328,12 +328,15 @@ from qec_ldpc_tpu_torch.kernels import (
 )
 from qec_ldpc_tpu_torch import native
 from qec_ldpc_tpu_torch.parallel import mc_graph, montecarlo
+from qec_ldpc_tpu_torch.parallel.chunk import (
+    chunk_generator,
+    relay_draws,
+    sample_syndromes,
+)
 from qec_ldpc_tpu_torch.parallel.graph_sharded import ShardRouter
 from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, spawn
 from qec_ldpc_tpu_torch.parallel.montecarlo import (
-    chunk_generator,
     mc_chunk_arrays,
-    relay_draws,
     run_monte_carlo,
     run_monte_carlo_osd,
 )
@@ -2248,7 +2251,7 @@ def single_device(label: str, graphs: CodeGraphs, logical, chunks: int,
     counters = np.zeros(NUM_COUNTERS, dtype=np.int64)
     lane_iters = loops = 0
     for c in range(chunks):
-        xe, ze, sx, sz = montecarlo.sample_syndromes(
+        xe, ze, sx, sz = sample_syndromes(
             graphs, chunk_generator(seed, c, device, 0), weight, p_err, BATCH,
             error_model)
         res = decode_batch(graphs, sx, sz, p_err, cfg)
@@ -2459,7 +2462,7 @@ def decide_classify_phase(device) -> dict:
              BPConfig(max_iters=MAX_ITERS, algorithm="min-sum"))):
         tables = classify_cuda.prepare(
             graphs, make_rank_basis_test(graphs.code, device))
-        xe, ze, sx, sz = montecarlo.sample_syndromes(
+        xe, ze, sx, sz = sample_syndromes(
             graphs, chunk_generator(29, 0, device), weight, p_err, BATCH,
             model)
         prior = np.float32(cfg.prior_factor) * np.float32(p_err)

@@ -9,29 +9,28 @@ The port of ``qec_ldpc_tpu/parallel/mc_graph.py``.  Per chunk of
   ``graph`` axis) [-> graph-sharded relay retries] -> all_gather of the
   decisions over ``graph`` -> classify -> counters.
 
-The group's counters are summed over ``data`` once.  Samples come from the
-generators of (seed, chunk, data index), as in the data-parallel chunk
-(``montecarlo.make_sharded_chunk``), so for the exact decoders (min-sum,
-layered min-sum) the counters equal a data-only mesh's of the same
-``num_data`` bit for bit; sum-product reassociates the cross-shard products
-and agrees statistically.  Circulant codes run the block-column engines of
+The group's chunks run in the group loop of parallel/chunk.py
+(``chunk_group``), and its counters are summed over ``data`` once.  Samples
+come from the generators of (seed, chunk, data index), as in the
+data-parallel chunk (``montecarlo.make_sharded_chunk``), so for the exact
+decoders (min-sum, layered min-sum) the counters equal a data-only mesh's
+of the same ``num_data`` bit for bit; sum-product reassociates the
+cross-shard products and agrees statistically.  Circulant codes run the block-column engines of
 ``parallel/graph_sharded.py``; lifted codes (bivariate bicycle, hypergraph
 product, toric) the lane-sharded engine of ``parallel/lifted_sharded.py``,
 each rank decoding its band of the full syndromes, exact for min-sum and
 sum-product alike.
 
 The quality mode's chunks (:func:`make_graph_sharded_osd_chunk`, and
-:func:`make_graph_sharded_arrays_chunk`, which returns the per-lane arrays)
-draw instead the chunk's full batch from the generator of (seed, chunk), as
+:func:`make_graph_sharded_arrays_chunk`, which returns the per-lane arrays;
+circulant codes only: the lane-sharded engine has no soft outputs, as in
+JAX) draw the chunk's full batch from the generator of (seed, chunk), as
 the single-device quality mode does: every data rank slices its columns,
 decodes them graph-sharded with soft outputs, and gathers the decisions and
-soft outputs over ``graph`` into global variable order.  Min-sum and
-layered min-sum give the single-device decode's decisions and soft outputs
-bit for bit.  Relay keeps JAX's per-graph-shard draw: each
-rank damps its own variables from the generator of (seed, chunk, graph
-index), so relay counters are deterministic, not those of ``mesh=None``.
-The quality mode's chunks need circulant codes: the lane-sharded engine has
-no soft outputs, as in JAX.
+soft outputs over ``graph`` into global variable order, the single-device
+decode's bit for bit for min-sum and layered min-sum.  Relay keeps JAX's
+per-graph-shard draw (a generator of (seed, chunk, graph index) a rank),
+so relay counters are deterministic, not those of ``mesh=None``.
 """
 
 from __future__ import annotations
@@ -54,18 +53,19 @@ from qec_ldpc_tpu_torch.parallel.graph_sharded import (
     _relay_one_graph_sharded,
     routers,
 )
-from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, Mesh
-from qec_ldpc_tpu_torch.parallel.montecarlo import (
-    _classify_and_compact,
-    _Fetch,
+from qec_ldpc_tpu_torch.parallel.chunk import (
+    accumulators,
     chunk_generator,
+    chunk_group,
+    compact_chunk,
     data_shard,
-    gather_lanes,
+    gather_arrays,
     reduce_over_data,
     relay_draws,
     sample_syndromes,
 )
-from qec_ldpc_tpu_torch.sampling.classify import NUM_COUNTERS, classify_batch
+from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, Mesh
+from qec_ldpc_tpu_torch.sampling.classify import classify_batch
 
 
 def _reject_unsupported_pallas(graphs: CodeGraphs, cfg: BPConfig) -> None:
@@ -121,11 +121,11 @@ def make_graph_sharded_chunk(mesh: Mesh, graphs: CodeGraphs, weight: int,
     X and Z lane-iterations (``graph_sharded.lane_iterations``: on a card
     each lane's own count, as a data-only mesh's kernels count).
     ``batch_per_device`` counts samples per data shard (every graph shard
-    works on the same samples).  ``relay_retries > 0`` repairs failed lanes with graph-sharded
-    damped retries, each rank drawing the damping of its own variables (a
-    lifted code: its band) from ``relay_draws(seed, chunk, device, data
-    index, graph index)``.  Circulant codes need G | L; lifted codes one
-    check block per graph and G | l (``lifted_sharded.adapters``)."""
+    works on the same samples).  ``relay_retries > 0`` repairs failed lanes
+    with graph-sharded damped retries, each rank drawing the damping of its
+    own variables (a lifted code: its band) from ``relay_draws(seed, chunk,
+    device, data index, graph index)``.  Circulant codes need G | L; lifted
+    codes one check block per graph and G | l (``lifted_sharded.adapters``)."""
     _reject_unsupported_pallas(graphs, cfg)
     if mesh.size(GRAPH_AXIS) <= 1:
         raise ValueError("graph axis has size 1; use make_sharded_chunk")
@@ -151,19 +151,20 @@ def make_graph_sharded_chunk(mesh: Mesh, graphs: CodeGraphs, weight: int,
 
     def chunk_fn(i_minus_p, seed, error_probability, chunk_ids, *, device):
         device = torch.device(device)
-        counters = torch.zeros(NUM_COUNTERS, dtype=torch.int64, device=device)
-        lane_iters = torch.zeros(2, dtype=torch.int64, device=device)
-        for c in chunk_ids:
+
+        def run(c, into):
             xe, ze, sx, sz = sample_syndromes(
                 graphs, chunk_generator(seed, c, device, didx), weight,
                 error_probability, batch_per_device, error_model)
             draws = (relay_draws(seed, c, device, didx, gidx)
                      if relay_retries > 0 else None)
             dx, dz, code, lanes = decode(sx, sz, error_probability, draws)
-            counters += classify_batch(i_minus_p, xe, ze, dx.to(torch.int32),
-                                       dz.to(torch.int32), code)
-            lane_iters += torch.stack(lanes)
-        return reduce_over_data(mesh, counters, lane_iters)
+            into[0].add_(classify_batch(i_minus_p, xe, ze, dx.to(torch.int32),
+                                        dz.to(torch.int32), code))
+            into[1].add_(torch.stack(lanes))
+
+        return reduce_over_data(mesh, *chunk_group(
+            run, chunk_ids, accumulators(device)))
 
     return chunk_fn
 
@@ -237,23 +238,10 @@ def make_graph_sharded_arrays_chunk(mesh: Mesh, graphs: CodeGraphs,
     lanes, routers_xz = _check_graph_osd_mesh(mesh, graphs, cfg, batch)
 
     def chunk_fn(seed, chunk, error_probability, *, device):
-        device = torch.device(device)
-        xe, ze, sx, sz, res = _soft_decode_shard(
+        return gather_arrays(mesh, *_soft_decode_shard(
             mesh, graphs, lanes, routers_xz, cfg, weight, error_model,
-            relay_retries, batch, seed, chunk, error_probability, device)
-        xe, ze, sx, sz, dx, dz, softx, softz, code = (
-            gather_lanes(mesh, a) for a in (xe, ze, sx, sz, res.decisions_x,
-                                            res.decisions_z, res.soft_x,
-                                            res.soft_z, res.error_code))
-        its = mesh.all_gather(torch.stack([
-            res.iters_x, res.iters_z, res.iter_samples_x,
-            res.iter_samples_z]), DATA_AXIS)
-        res = DecodeResult(decisions_x=dx, decisions_z=dz, error_code=code,
-                           iters_x=its[:, 0].max(), iters_z=its[:, 1].max(),
-                           iter_samples_x=its[:, 2].sum(),
-                           iter_samples_z=its[:, 3].sum(),
-                           soft_x=softx, soft_z=softz)
-        return (*(a.to(torch.int8) for a in (xe, ze, sx, sz)), res)
+            relay_retries, batch, seed, chunk, error_probability,
+            torch.device(device)))
 
     return chunk_fn
 
@@ -276,13 +264,9 @@ def make_graph_sharded_osd_chunk(mesh: Mesh, graphs: CodeGraphs,
     lanes, routers_xz = _check_graph_osd_mesh(mesh, graphs, cfg, batch)
 
     def chunk_fn(i_minus_p, seed, chunk, error_probability, *, device):
-        xe, ze, sx, sz, res = _soft_decode_shard(
+        return compact_chunk(i_minus_p, *_soft_decode_shard(
             mesh, graphs, lanes, routers_xz, cfg, weight, error_model,
             relay_retries, batch, seed, chunk, error_probability,
-            torch.device(device))
-        counters, counts, bundle = _classify_and_compact(i_minus_p, xe, ze,
-                                                         sx, sz, res)
-        iters = torch.stack([res.iter_samples_x, res.iter_samples_z])
-        return counters, iters, _Fetch(counts), bundle
+            torch.device(device)))
 
     return chunk_fn

@@ -7,26 +7,19 @@ one device:
   sample errors -> syndromes -> X/Z decode [-> relay retries] -> classify
   -> counters.
 
-Per-chunk randomness comes from ``torch.Generator``s on the device seeded
-from (seed, global chunk id): one for the errors and, with
-``relay_retries > 0``, one per relay retry and graph for the damping draws
-(:func:`relay_draws`), so the statistics do not depend on how chunks are
-grouped.  Counters stay on the device for a whole group of
-``steps_per_call`` chunks; the host reads them once per group.  On one
-CUDA device without relay a chunk is one replay of a CUDA graph of the
-whole pipeline (:class:`_ChunkGraph`).  On a CUDA device without relay,
-for sum-product and min-sum under a rank-basis logical test
-(:func:`fused_path`), one kernel takes a chunk from the decoders' final
-messages to its counters (kernels/classify_cuda.py).
+Chunk c draws from generators of (seed, c), so the statistics do not
+depend on how chunks are grouped; these and the other per-chunk primitives
+live beneath this module and parallel/mc_graph.py, in parallel/chunk.py.
+A group of ``steps_per_call`` chunks adds into counters on the device,
+which the host reads once.  How a chunk runs is decided once a point: a
+replay of a CUDA graph of the whole pipeline (:func:`graph_path`,
+:class:`_ChunkGraph`), and one kernel from the decoders' final messages to
+the counters (:func:`fused_path`, kernels/classify_cuda.py).
 
-With a ``mesh`` (parallel/mesh.py) every rank runs the same call.  On a
-data-only mesh (:func:`make_sharded_chunk`) each rank decodes
-``batch_size // num_data`` lanes of every chunk from generators seeded by
-(seed, chunk, data index), the counterpart of JAX's
-``fold_in(fold_in(key, c), d)``; a graph axis > 1 hands the decode to the
-graph-sharded engines (parallel/mc_graph.py) on the same samples.  The
-counters and lane-iterations are summed over the data axis once per group,
-and every rank returns the same totals.
+With a ``mesh`` (parallel/mesh.py) every rank runs the same call and gets
+the same totals: each data rank decodes its lanes from generators of (seed,
+chunk, data index), the counterpart of JAX's ``fold_in(fold_in(key, c),
+d)`` (:func:`make_sharded_chunk`, or parallel/mc_graph.py on a graph axis).
 
 :func:`run_monte_carlo_osd` is the quality mode (the port of JAX's
 function of that name, on one device or a data-only mesh): the same
@@ -35,13 +28,6 @@ samples, then OSD (decoder/osd.py) on the lanes BP and relay leave failed:
   sample -> syndromes -> decode with soft outputs [-> relay] -> classify
   the other lanes and move the failed ones to the front -> OSD on the
   failed lanes -> splice the corrections -> classify the failed lanes.
-
-On a data mesh each rank draws the chunk's full batch from the one
-generator of (seed, chunk) and decodes its own columns, and each relay
-retry's gammas for the full batch, as JAX does, so the samples and the
-counters are those of the single-device run; a graph axis > 1 hands the
-decode to the graph-sharded quality chunk
-(``mc_graph.make_graph_sharded_osd_chunk``).
 
 :func:`mc_chunk` and :func:`mc_chunk_arrays` are one chunk of the counting
 path: its counters, or its per-lane arrays.
@@ -54,6 +40,7 @@ number of compiled shapes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -63,7 +50,6 @@ from qec_ldpc_tpu_torch.decoder.decode import (
     SYNDROME_FAIL_X,
     SYNDROME_FAIL_Z,
     CodeGraphs,
-    DecodeResult,
     decode_batch,
     run_decoder,
 )
@@ -71,6 +57,22 @@ from qec_ldpc_tpu_torch.decoder.osd import CSSPostprocessor, splice
 from qec_ldpc_tpu_torch.decoder.relay import RelayDraws, relay_decode_batch
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig
 from qec_ldpc_tpu_torch.kernels import classify_cuda
+from qec_ldpc_tpu_torch.parallel.chunk import (
+    _Fetch,
+    accumulators,
+    chunk_generator,
+    chunk_group,
+    compact_chunk,
+    data_shard,
+    gather_arrays,
+    reduce_over_data,
+    relay_draws,
+    sample_syndromes,
+)
+from qec_ldpc_tpu_torch.parallel.mc_graph import (
+    make_graph_sharded_chunk,
+    make_graph_sharded_osd_chunk,
+)
 from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, Mesh
 from qec_ldpc_tpu_torch.sampling.classify import (
     NUM_COUNTERS,
@@ -78,39 +80,7 @@ from qec_ldpc_tpu_torch.sampling.classify import (
     classify_batch,
     make_rank_basis_test,
 )
-from qec_ldpc_tpu_torch.sampling.errors import (
-    generator_seed,
-    sample_depolarizing_errors,
-    sample_weight_w_errors,
-    sample_weight_w_errors_dynamic,
-    seeded_generator,
-)
-
-
-#: the relay stream's tag: the JAX package's fold_in constant ("RELA")
-RELAY_STREAM = 0x52454C41
-
-
-def chunk_generator(seed: int, chunk: int, device: torch.device | str,
-                    *shard: int) -> torch.Generator:
-    """The error generator of global chunk ``chunk``: a function of
-    (seed, chunk) alone, and on a mesh of the rank's data index
-    (``shard``)."""
-    with tracing.span("mc.sample"):
-        return seeded_generator([seed, chunk, *shard], device)
-
-
-def relay_draws(seed: int, chunk: int, device: torch.device | str,
-                *shard: int, width: int | None = None,
-                offset: int = 0) -> RelayDraws:
-    """The relay damping draws of global chunk ``chunk``: retry r of graph k
-    draws from the generator of (seed, chunk, RELAY_STREAM, ``shard``, k,
-    r), independent of the error stream and of the other graph's retries.
-    ``shard``: the rank's mesh indices where each rank has a stream of its
-    own; ``width``/``offset``: draw the full ``width`` lanes and keep this
-    rank's columns from ``offset`` (decoder/relay.py)."""
-    return RelayDraws([seed, chunk, RELAY_STREAM, *shard], device, width,
-                      offset)
+from qec_ldpc_tpu_torch.sampling.errors import generator_seed
 
 
 def _resolve_logical_test(graphs: CodeGraphs, i_minus_p, device):
@@ -125,35 +95,6 @@ def _resolve_logical_test(graphs: CodeGraphs, i_minus_p, device):
     if isinstance(i_minus_p, torch.Tensor):
         return i_minus_p.to(device)
     return torch.as_tensor(np.asarray(i_minus_p), device=device)
-
-
-def sample_syndromes(graphs: CodeGraphs, generator: torch.Generator,
-                     weight: int, error_probability: float, batch: int,
-                     error_model: str, weight_cap: int | None = None,
-                     lanes: slice | None = None):
-    """Sample errors -> syndromes.  Returns (xe, ze, sx, sz), errors as
-    int32.  ``weight_cap``: draw weight-model errors with the dynamic
-    sampler (``weight_cap`` candidates, the first ``weight`` active).
-    ``lanes``: keep only these lanes of the ``batch`` drawn (a data shard's
-    columns of the full-batch draw)."""
-    n = graphs.code.n
-    with tracing.span("mc.sample"):
-        if error_model == "weight":
-            if weight_cap is not None:
-                xe, ze = sample_weight_w_errors_dynamic(generator, n, weight,
-                                                        weight_cap, batch)
-            else:
-                xe, ze = sample_weight_w_errors(generator, n, weight, batch)
-        elif error_model == "depolarizing":
-            xe, ze = sample_depolarizing_errors(generator, n,
-                                                error_probability, batch)
-        else:
-            raise ValueError(f"unknown error model {error_model!r}")
-        if lanes is not None:
-            xe, ze = xe[:, lanes], ze[:, lanes]
-        xe_i = xe.to(torch.int32).contiguous()
-        ze_i = ze.to(torch.int32).contiguous()
-        return xe_i, ze_i, graphs.x.syndrome(xe_i), graphs.z.syndrome(ze_i)
 
 
 def _sample_and_decode(graphs: CodeGraphs, generator: torch.Generator,
@@ -195,22 +136,22 @@ def _chunk_body(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
                 weight: int, error_probability: float, cfg: BPConfig,
                 batch: int, error_model: str, relay_retries: int = 0,
                 draws: RelayDraws | None = None,
-                weight_cap: int | None = None, *, into=None):
+                weight_cap: int | None = None, *, fused: bool = False,
+                into=None):
     """Sample + decode + classify one batch, added into ``into``, a pair of
     int64 device accumulators (counters[NUM_COUNTERS], iters[2]), fresh
     zeros when None, which it returns; iters are the executed BP
     lane-iterations for [X, Z], relay retries included.
 
-    Where :func:`fused_path` holds, the decoders' final messages go to
-    ``classify_cuda.decide_classify`` (its tables from ``prepare``, made in
-    the point's set-up), which adds the chunk into the accumulators; each
-    chunk so counted adds 1 to the counter ``classify.fused`` (nothing
-    while a CUDA graph captures it), each chunk of the other path 0."""
+    ``fused``: the point's :func:`fused_path` decision.  Where it holds, the
+    decoders' final messages go to ``classify_cuda.decide_classify`` (its
+    tables from ``prepare``, made in the point's set-up), which adds the
+    chunk into the accumulators."""
     if into is None:
         into = (torch.zeros(NUM_COUNTERS, dtype=torch.int64,
                             device=generator.device),
                 torch.zeros(2, dtype=torch.int64, device=generator.device))
-    if fused_path(generator.device, relay_retries, cfg, i_minus_p):
+    if fused:
         xe_i, ze_i, sx, sz = sample_syndromes(
             graphs, generator, weight, error_probability, batch, error_model,
             weight_cap)
@@ -224,8 +165,6 @@ def _chunk_body(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
             classify_cuda.decide_classify(
                 classify_cuda.prepare(graphs, i_minus_p), cfg, (vx, vz),
                 (sx, sz), (xe_i, ze_i), (itx, itz), *into)
-        if not torch.cuda.is_current_stream_capturing():
-            tracing.count("classify.fused")
         return into
     xe_i, ze_i, _, _, res = _sample_and_decode(
         graphs, generator, weight, error_probability, cfg, batch, error_model,
@@ -236,23 +175,33 @@ def _chunk_body(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
                                   res.decisions_z.to(torch.int32),
                                   res.error_code)
     iters = torch.stack([res.iter_samples_x, res.iter_samples_z])
-    tracing.count("classify.fused", 0)
     into[0].add_(counters)
     into[1].add_(iters)
     return into
 
 
-def _effective_spc(num_chunks: int, steps_per_call: int) -> int:
-    """The group size actually used for ``num_chunks`` chunks: the largest
-    divisor of num_chunks <= steps_per_call, unless that is below
-    steps_per_call // 8 (the JAX driver's rule, kept so journals and group
-    boundaries agree between the two packages)."""
-    if num_chunks % steps_per_call:
-        div = next((d for d in range(min(steps_per_call, num_chunks), 0, -1)
-                    if num_chunks % d == 0), 1)
-        if div >= max(1, steps_per_call // 8):
-            steps_per_call = div
-    return steps_per_call
+def _chunk_runner(graphs: CodeGraphs, i_minus_p, seed: int, weight: int,
+                  error_probability: float, cfg: BPConfig, batch: int,
+                  error_model: str, relay_retries: int,
+                  weight_cap: int | None, fused: bool, device: torch.device,
+                  shard: tuple[int, ...] = (), replay: bool = False):
+    """:func:`chunk_group`'s ``run(c, into)`` for a point's chunks through
+    :func:`_chunk_body`: replayed from a CUDA graph (:class:`_ChunkGraph`)
+    where ``replay``, else eager on the generators of (seed, c, ``shard``),
+    ``shard`` the rank's mesh indices."""
+    body = functools.partial(
+        _chunk_body, graphs, i_minus_p, weight=weight,
+        error_probability=error_probability, cfg=cfg, batch=batch,
+        error_model=error_model, relay_retries=relay_retries,
+        weight_cap=weight_cap, fused=fused)
+    if replay:
+        return _ChunkGraph(body, device, seed).run
+
+    def run(c, into):
+        body(chunk_generator(seed, c, device, *shard),
+             draws=relay_draws(seed, c, device, *shard)
+             if relay_retries > 0 else None, into=into)
+    return run
 
 
 def _chunk_samples(batch_size: int, mesh: Mesh | None) -> int:
@@ -266,30 +215,17 @@ def _chunk_samples(batch_size: int, mesh: Mesh | None) -> int:
 
 def effective_steps_per_call(count: int, batch_size: int,
                              steps_per_call: int, mesh: Mesh | None = None) -> int:
-    """The steps_per_call :func:`run_monte_carlo` will actually use."""
-    return _effective_spc(-(-count // _chunk_samples(batch_size, mesh)),
-                          steps_per_call)
-
-
-def _chunk_group(graphs: CodeGraphs, i_minus_p, chunk_ids, seed: int,
-                 shard: tuple[int, ...], weight: int, error_probability: float,
-                 cfg: BPConfig, batch: int, error_model: str,
-                 relay_retries: int, device: torch.device,
-                 weight_cap: int | None = None):
-    """The chunks ``chunk_ids`` of one rank (mesh indices ``shard``, empty
-    without a mesh), summed on the device: (counters int64, iters[2]
-    int64)."""
-    counters = torch.zeros(NUM_COUNTERS, dtype=torch.int64, device=device)
-    iters = torch.zeros(2, dtype=torch.int64, device=device)
-    for c in chunk_ids:
-        with tracing.span("mc.chunk", c):
-            _chunk_body(graphs, i_minus_p,
-                        chunk_generator(seed, c, device, *shard), weight,
-                        error_probability, cfg, batch, error_model,
-                        relay_retries, relay_draws(seed, c, device, *shard)
-                        if relay_retries > 0 else None, weight_cap,
-                        into=(counters, iters))
-    return counters, iters
+    """The steps_per_call :func:`run_monte_carlo` will actually use: the
+    largest divisor of the number of chunks <= steps_per_call, unless that
+    is below steps_per_call // 8 (the JAX driver's rule, kept so journals
+    and group boundaries agree between the two packages)."""
+    num_chunks = -(-count // _chunk_samples(batch_size, mesh))
+    if num_chunks % steps_per_call:
+        div = next((d for d in range(min(steps_per_call, num_chunks), 0, -1)
+                    if num_chunks % d == 0), 1)
+        if div >= max(1, steps_per_call // 8):
+            steps_per_call = div
+    return steps_per_call
 
 
 def graph_path(device: torch.device, mesh: Mesh | None,
@@ -307,110 +243,85 @@ _CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
 
 
 class _ChunkGraph:
-    """One chunk of the counting path, ``body(generator, into)``
-    (:func:`_chunk_body`, adding the chunk into the group's accumulators
-    ``into``), captured as a CUDA graph on one device and replayed for the
-    later chunks of one call.
+    """:func:`chunk_group`'s ``run(c, into)`` as a CUDA graph on one device
+    (:meth:`run`; ``into`` the same accumulators at every call): the call's
+    first chunk of ``body(generator, into=into)`` runs eagerly, then is
+    captured, and the later chunks replay it.  The graph's generator is
+    reseeded by the chunk's seed before each replay (``manual_seed``
+    restarts its Philox offset at 0), so a replay draws what the chunk's
+    fresh generator (:func:`chunk_generator`) draws.  The graph allocates
+    from a memory pool of its own, freed with it.  The kernel wrappers'
+    ``launches`` count the capture's calls, not the replays."""
 
-    The graph draws from a generator registered with it, reseeded before
-    each replay by the chunk's seed (``manual_seed`` restarts its Philox
-    offset at 0), so a replay draws what the chunk's fresh generator
-    (:func:`chunk_generator`) draws.  It accumulates into static tensors
-    and allocates from a memory pool of its own, freed with the graph.  The
-    kernel wrappers' ``launches`` count the calls they make, the capture's
-    among them, and not the replays; a replay of a capture that launched
-    the fused decide/classify kernel adds 1 to ``classify.fused``."""
-
-    def __init__(self, body, device: torch.device):
-        self.body, self.device = body, device
+    def __init__(self, body, device: torch.device, seed: int):
+        self.body, self.device, self.seed = body, device, seed
         self.generator = torch.Generator(device=device)
-        self.counters = torch.zeros(NUM_COUNTERS, dtype=torch.int64,
-                                    device=device)
-        self.iters = torch.zeros(2, dtype=torch.int64, device=device)
         self.graph = self.pool = None
-        self.fused = False
 
     def __del__(self):
         self.graph = None  # before its pool
 
-    def group(self, chunk_ids, seed: int):
-        """:func:`_chunk_group` through the graph: the chunks ``chunk_ids``
-        summed on the device (counters int64, iters[2] int64).  The call's
-        first chunk runs eagerly, then is captured; the next ones replay."""
-        self.counters.zero_()
-        self.iters.zero_()
-        with torch.cuda.device(self.device):
-            for c in chunk_ids:
-                with tracing.span("mc.chunk", c):
-                    if self.graph is None:
-                        self._capture(seed, c)
-                    else:
-                        self._replay(seed, c)
-        return self.counters, self.iters
-
-    def _capture(self, seed: int, chunk: int) -> None:
-        """Run chunk ``chunk`` eagerly and count it (it builds the kernels
-        and fills the per-device caches the graph then reads), then capture
-        the body on the graph's generator."""
-        stream = _CAPTURE_STREAMS.get(self.device)
-        if stream is None:
-            stream = _CAPTURE_STREAMS[self.device] = torch.cuda.Stream(
-                self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        into = (self.counters, self.iters)
-        with torch.cuda.stream(stream):
-            self.body(chunk_generator(seed, chunk, self.device), into)
-            self.pool = torch.cuda.MemPool()
-            graph = torch.cuda.CUDAGraph()
-            graph.register_generator_state(self.generator)
-            fused_launches = classify_cuda.launches
-            graph.capture_begin(self.pool.id,
-                                capture_error_mode="thread_local")
-            try:
-                self.body(self.generator, into)
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        self.graph = graph
-        self.fused = classify_cuda.launches > fused_launches
-        tracing.count("mc.graph_captures")
-
-    def _replay(self, seed: int, chunk: int) -> None:
+    def run(self, chunk: int, into) -> None:
+        if self.graph is None:
+            return self._capture(chunk, into)
         with tracing.span("mc.sample"):
-            self.generator.manual_seed(generator_seed([seed, chunk]))
+            self.generator.manual_seed(generator_seed([self.seed, chunk]))
         with tracing.span("mc.launch"):
             self.graph.replay()
         tracing.count("mc.graph_replays")
-        tracing.count("classify.fused", int(self.fused))
+
+    def _capture(self, chunk: int, into) -> None:
+        """Run chunk ``chunk`` eagerly (building the kernels and the caches
+        the graph reads), then capture the body on the graph's generator."""
+        with torch.cuda.device(self.device):
+            stream = _CAPTURE_STREAMS.get(self.device)
+            if stream is None:
+                stream = _CAPTURE_STREAMS[self.device] = torch.cuda.Stream(
+                    self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                self.body(chunk_generator(self.seed, chunk, self.device),
+                          into=into)
+                self.pool = torch.cuda.MemPool()
+                graph = torch.cuda.CUDAGraph()
+                graph.register_generator_state(self.generator)
+                graph.capture_begin(self.pool.id,
+                                    capture_error_mode="thread_local")
+                try:
+                    self.body(self.generator, into=into)
+                finally:
+                    graph.capture_end()
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+        self.graph = graph
+        tracing.count("mc.graph_captures")
 
 
-def reduce_over_data(mesh: Mesh, counters: torch.Tensor, iters: torch.Tensor):
-    """Sum a group's (counters, iters) over the data axis: one all_reduce."""
-    total = mesh.all_reduce(torch.cat([counters.to(torch.int64),
-                                       iters.to(torch.int64)]),
-                            "sum", DATA_AXIS)
-    return total[:NUM_COUNTERS], total[NUM_COUNTERS:]
+class _Point:
+    """What the two drivers share of one point: the mesh refusal, the
+    logical test on ``device`` and the running totals from
+    ``init_counters`` on, which :meth:`tally` extends."""
 
+    def __init__(self, graphs: CodeGraphs, i_minus_p, mesh: Mesh | None,
+                 device: torch.device, init_counters, progress):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise ValueError(f"mesh must be a parallel.mesh.Mesh, got "
+                             f"{type(mesh).__name__}")
+        self.i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
+        self.counters = np.zeros(NUM_COUNTERS, dtype=np.int64)
+        if init_counters is not None:
+            self.counters += np.asarray(init_counters, dtype=np.int64)
+        self.iters = 0
+        self.progress = progress
 
-def gather_lanes(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    """A (..., lanes) tensor of every data shard joined along its last axis
-    in data order: the full batch's columns.  One all_gather."""
-    g = torch.movedim(mesh.all_gather(x, DATA_AXIS), 0, -2)
-    return g.reshape(*x.shape[:-1], -1)
-
-
-def data_shard(mesh: Mesh | None, batch: int) -> tuple[slice | None, int]:
-    """(this rank's columns of a ``batch``-lane chunk, their first lane):
-    (None, 0) without a mesh."""
-    if mesh is None:
-        return None, 0
-    num_data = mesh.size(DATA_AXIS)
-    if batch % num_data:
-        raise ValueError(f"batch_size={batch} must be divisible by the "
-                         f"data-axis size {num_data}")
-    bpd = batch // num_data
-    lo = mesh.rank(DATA_AXIS) * bpd
-    return slice(lo, lo + bpd), lo
+    def tally(self, host: np.ndarray, index: int, num: int) -> None:
+        """Add a fetched ``[counters | iters]`` vector, step ``index`` of
+        ``num``, and hand it to ``progress`` in the span ``outside``."""
+        counters, iters = host[:NUM_COUNTERS], int(host[NUM_COUNTERS:].sum())
+        self.counters += counters
+        self.iters += iters
+        if self.progress is not None:
+            with tracing.span(tracing.OUTSIDE):
+                self.progress(index, num, counters, iters)
 
 
 def mc_chunk(graphs: CodeGraphs, i_minus_p, seed: int, chunk: int,
@@ -424,11 +335,14 @@ def mc_chunk(graphs: CodeGraphs, i_minus_p, seed: int, chunk: int,
     Returns int64 device tensors (counters[NUM_COUNTERS], iters[2]), iters
     the executed lane-iterations for [X, Z]."""
     device = torch.device(device)
-    return _chunk_body(graphs, _resolve_logical_test(graphs, i_minus_p, device),
-                       chunk_generator(seed, chunk, device), weight,
-                       error_probability, cfg, batch, error_model,
-                       relay_retries, relay_draws(seed, chunk, device)
-                       if relay_retries > 0 else None, weight_cap)
+    i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
+    fused = fused_path(device, relay_retries, cfg, i_minus_p)
+    out = _chunk_body(graphs, i_minus_p, chunk_generator(seed, chunk, device),
+                      weight, error_probability, cfg, batch, error_model,
+                      relay_retries, relay_draws(seed, chunk, device)
+                      if relay_retries > 0 else None, weight_cap, fused=fused)
+    tracing.count("classify.fused", int(fused))
+    return out
 
 
 def mc_chunk_arrays(graphs: CodeGraphs, seed: int, chunk: int, weight: int,
@@ -442,10 +356,9 @@ def mc_chunk_arrays(graphs: CodeGraphs, seed: int, chunk: int, weight: int,
     ``mesh`` (a data-only mesh; every rank calls with its own ``device``):
     each data rank draws the chunk's full batch and each relay retry's
     gammas for the full batch, decodes its own columns, and every rank
-    returns the full arrays, gathered over ``data``: they equal the
-    ``mesh=None`` call's.  Iteration totals are the data shards' sum and
-    maximum, which depend on the partition on the plain path (each shard's
-    loop exits on its own lanes)."""
+    returns the full arrays (:func:`gather_arrays`): the ``mesh=None``
+    call's, but for iteration totals, which depend on the partition on the
+    plain path (each shard's loop exits on its own lanes)."""
     device = torch.device(device)
     if mesh is not None and mesh.size(GRAPH_AXIS) > 1:
         raise ValueError("a graph axis > 1 decodes graph-sharded: use "
@@ -456,22 +369,7 @@ def mc_chunk_arrays(graphs: CodeGraphs, seed: int, chunk: int, weight: int,
         error_probability, cfg, batch, error_model, relay_retries,
         relay_draws(seed, chunk, device, width=batch, offset=lo)
         if relay_retries > 0 else None, lanes=lanes)
-    if mesh is not None:
-        def gather(a):
-            return None if a is None else gather_lanes(mesh, a)
-
-        xe, ze, sx, sz = (gather(a) for a in (xe, ze, sx, sz))
-        its = mesh.all_gather(torch.stack([
-            res.iters_x, res.iters_z, res.iter_samples_x,
-            res.iter_samples_z]).to(torch.int64), DATA_AXIS)
-        res = DecodeResult(
-            decisions_x=gather(res.decisions_x),
-            decisions_z=gather(res.decisions_z),
-            error_code=gather(res.error_code),
-            iters_x=its[:, 0].max(), iters_z=its[:, 1].max(),
-            iter_samples_x=its[:, 2].sum(), iter_samples_z=its[:, 3].sum(),
-            soft_x=gather(res.soft_x), soft_z=gather(res.soft_z))
-    return (*(a.to(torch.int8) for a in (xe, ze, sx, sz)), res)
+    return gather_arrays(mesh, xe, ze, sx, sz, res)
 
 
 def make_sharded_chunk(mesh: Mesh, graphs: CodeGraphs, weight: int,
@@ -487,10 +385,14 @@ def make_sharded_chunk(mesh: Mesh, graphs: CodeGraphs, weight: int,
     didx = mesh.rank(DATA_AXIS)
 
     def chunk_fn(i_minus_p, seed, error_probability, chunk_ids, *, device):
-        return reduce_over_data(mesh, *_chunk_group(
-            graphs, i_minus_p, chunk_ids, seed, (didx,), weight,
-            error_probability, cfg, batch_per_device, error_model,
-            relay_retries, torch.device(device), weight_cap))
+        device = torch.device(device)
+        fused = fused_path(device, relay_retries, cfg, i_minus_p)
+        run = _chunk_runner(graphs, i_minus_p, seed, weight,
+                            error_probability, cfg, batch_per_device,
+                            error_model, relay_retries, weight_cap, fused,
+                            device, (didx,))
+        return reduce_over_data(mesh, *chunk_group(
+            run, chunk_ids, accumulators(device), fused))
 
     return chunk_fn
 
@@ -541,68 +443,51 @@ def run_monte_carlo(
     static sampler's.  The graph-sharded path ignores it, as JAX's does.
 
     On one CUDA device with no mesh and no relay (:func:`graph_path`) the
-    chunk runs as a CUDA graph: the call's first chunk runs eagerly, then
-    is captured (sample, decode, classify and the group's accumulation),
-    and every later chunk reseeds the graph's generator and replays it, so
-    the host launches one graph a chunk; the graph is dropped when the call
-    returns.  The draws, counters, lane-iterations and ``progress`` calls
-    are those of the eager chunks.  Where :func:`fused_path` holds too,
-    the graph's decisions and classification are one kernel, whose tables
-    are made once a point.
+    host launches one CUDA graph a chunk (:class:`_ChunkGraph`, dropped
+    when the call returns), with the draws, counters, lane-iterations and
+    ``progress`` calls of the eager chunks.  Where :func:`fused_path` holds
+    too, decisions and classification are one kernel, whose tables are
+    made once a point.
 
     Returns (counters[NUM_COUNTERS] int64 numpy, total_bp_lane_iterations).
     """
     device = torch.device(device)
     with tracing.span("mc.point"):
         with tracing.span("mc.point_setup"):
-            i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
-            if fused_path(device, relay_retries, cfg, i_minus_p):
+            point = _Point(graphs, i_minus_p, mesh, device, init_counters,
+                           progress)
+            i_minus_p = point.i_minus_p
+            fused = fused_path(device, relay_retries, cfg, i_minus_p)
+            if fused:
                 classify_cuda.prepare(graphs, i_minus_p)  # the chunks' tables
             replaying = graph_path(device, mesh, relay_retries)
-            if replaying:
-                if device.index is None:
-                    device = torch.device("cuda", torch.cuda.current_device())
-                chunk = _ChunkGraph(lambda generator, into: _chunk_body(
-                    graphs, i_minus_p, generator, weight, error_probability,
-                    cfg, batch_size, error_model, weight_cap=weight_cap,
-                    into=into), device)
-
-                def run_group(ids):
-                    return chunk.group(ids, seed)
-            elif mesh is None:
-                def run_group(ids):
-                    return _chunk_group(graphs, i_minus_p, ids, seed, (),
-                                        weight, error_probability, cfg,
-                                        batch_size, error_model,
-                                        relay_retries, device, weight_cap)
-            else:
-                if not isinstance(mesh, Mesh):
-                    raise ValueError(f"mesh must be a parallel.mesh.Mesh, got "
-                                     f"{type(mesh).__name__}")
-                per_dev = (_chunk_samples(batch_size, mesh)
-                           // mesh.size(DATA_AXIS))
-                if mesh.size(GRAPH_AXIS) > 1:
-                    from qec_ldpc_tpu_torch.parallel.mc_graph import (
-                        make_graph_sharded_chunk,
-                    )
-
-                    chunk_fn = make_graph_sharded_chunk(
-                        mesh, graphs, weight, cfg, per_dev, error_model,
-                        relay_retries)
-                else:
-                    chunk_fn = make_sharded_chunk(
-                        mesh, graphs, weight, cfg, per_dev, error_model,
-                        relay_retries, weight_cap)
+            # the chunk runner, picked once
+            if mesh is not None:
+                per_dev = max(1, batch_size // mesh.size(DATA_AXIS))
+                chunk_fn = (make_graph_sharded_chunk(
+                    mesh, graphs, weight, cfg, per_dev, error_model,
+                    relay_retries) if mesh.size(GRAPH_AXIS) > 1
+                    else make_sharded_chunk(mesh, graphs, weight, cfg,
+                                            per_dev, error_model,
+                                            relay_retries, weight_cap))
 
                 def run_group(ids):
                     return chunk_fn(i_minus_p, seed, error_probability, ids,
                                     device=device)
-            totals = np.zeros(NUM_COUNTERS, dtype=np.int64)
-            if init_counters is not None:
-                totals += np.asarray(init_counters, dtype=np.int64)
-            total_iters = 0
+            else:
+                if replaying and device.index is None:
+                    device = torch.device("cuda", torch.cuda.current_device())
+                run = _chunk_runner(graphs, i_minus_p, seed, weight,
+                                    error_probability, cfg, batch_size,
+                                    error_model, relay_retries, weight_cap,
+                                    fused, device, replay=replaying)
+                into = accumulators(device)
+
+                def run_group(ids):
+                    return chunk_group(run, ids, into, fused)
             num_chunks = -(-count // _chunk_samples(batch_size, mesh))
-            steps_per_call = _effective_spc(num_chunks, steps_per_call)
+            steps_per_call = effective_steps_per_call(
+                count, batch_size, steps_per_call, mesh)
             groups = [range(g, min(g + steps_per_call, num_chunks))
                       for g in range(0, num_chunks, steps_per_call)]
         for gi in range(start_chunk, len(groups)):
@@ -614,61 +499,8 @@ def run_monte_carlo(
                 both = torch.cat([counters, iters])
                 with tracing.span("mc.fetch"):
                     host = both.cpu().numpy()  # one fetch
-                group_counters = host[:NUM_COUNTERS]
-                group_iters = int(host[NUM_COUNTERS:].sum())
-                totals += group_counters
-                total_iters += group_iters
-            if progress is not None:
-                with tracing.span(tracing.OUTSIDE):
-                    progress(gi, len(groups), group_counters, group_iters)
-    return totals, total_iters
-
-
-#: error-code bits that route a lane through OSD
-_SYN_BITS = SYNDROME_FAIL_X | SYNDROME_FAIL_Z
-
-
-class _Fetch:
-    """A small device tensor on its way to the host: the copy is queued at
-    construction, and :meth:`get` waits for that copy alone, not for work
-    queued after it (a CUDA event, not a stream synchronisation)."""
-
-    def __init__(self, tensor: torch.Tensor):
-        self._host = tensor.to("cpu", non_blocking=True)
-        self._ready = None
-        if tensor.is_cuda:
-            self._ready = torch.cuda.Event()
-            self._ready.record()
-
-    def get(self) -> np.ndarray:
-        with tracing.span("mc.fetch"):
-            if self._ready is not None:
-                self._ready.synchronize()
-            return self._host.numpy()
-
-
-def _classify_and_compact(i_minus_p, xe, ze, sx, sz, res):
-    """Classify every lane without a syndrome-fail bit on the device, and
-    permute the per-lane arrays so the failed lanes come first, in their
-    order.  Returns ``(counters_ok, counts, bundle)``: ``counts`` (3,) int64
-    holds the failed lanes, the X-failed and the Z-failed; ``bundle`` is
-    (xe, ze, sx, sz, dx, dz, soft_x, soft_z, error_code) compacted (the
-    soft outputs None when the decode made none)."""
-    with tracing.span("mc.classify"):
-        ec = res.error_code
-        fail = (ec & _SYN_BITS) != 0
-        counters = classify_batch(i_minus_p, xe, ze,
-                                  res.decisions_x.to(torch.int32),
-                                  res.decisions_z.to(torch.int32), ec,
-                                  valid=~fail)
-        order = torch.argsort((~fail).to(torch.int32), stable=True)
-        bundle = tuple(None if a is None
-                       else a.index_select(a.dim() - 1, order)
-                       for a in (xe, ze, sx, sz, res.decisions_x,
-                                 res.decisions_z, res.soft_x, res.soft_z, ec))
-        counts = torch.stack([fail.sum(), ((ec & SYNDROME_FAIL_X) != 0).sum(),
-                              ((ec & SYNDROME_FAIL_Z) != 0).sum()])
-        return counters, counts, bundle
+            point.tally(host, gi, len(groups))
+    return point.counters, point.iters
 
 
 def make_osd_chunk(graphs: CodeGraphs, weight: int, cfg: BPConfig,
@@ -678,27 +510,20 @@ def make_osd_chunk(graphs: CodeGraphs, weight: int, cfg: BPConfig,
     mesh: ``chunk_fn(i_minus_p, seed, chunk, error_probability, *,
     device)`` samples global chunk ``chunk``'s full ``batch`` from the
     generator of (seed, chunk), decodes (with soft outputs when ``cfg``
-    asks) this rank's columns (all of them without a mesh, the data
-    shard's on one), each relay retry drawing its gammas for the full
-    batch, classifies the non-failed lanes and compacts.  It returns
-    ``(counters_ok, iters[2], counts fetch, bundle)`` for the rank's
-    columns, the failed-lane counts already on their way to the host (the
-    contract of ``mc_graph.make_graph_sharded_osd_chunk``)."""
+    asks) this rank's columns, each relay retry drawing its gammas for the
+    full batch, and returns :func:`compact_chunk` of them (the contract of
+    ``mc_graph.make_graph_sharded_osd_chunk``)."""
     if mesh is not None and mesh.size(GRAPH_AXIS) > 1:
         raise ValueError("graph-sharded quality chunks live in "
                          "mc_graph.make_graph_sharded_osd_chunk")
     lanes, lo = data_shard(mesh, batch)
 
     def chunk_fn(i_minus_p, seed, chunk, error_probability, *, device):
-        xe, ze, sx, sz, res = _sample_and_decode(
+        return compact_chunk(i_minus_p, *_sample_and_decode(
             graphs, chunk_generator(seed, chunk, device), weight,
             error_probability, cfg, batch, error_model, relay_retries,
             relay_draws(seed, chunk, device, width=batch, offset=lo)
-            if relay_retries > 0 else None, lanes=lanes)
-        counters, counts, bundle = _classify_and_compact(i_minus_p, xe, ze,
-                                                         sx, sz, res)
-        iters = torch.stack([res.iter_samples_x, res.iter_samples_z])
-        return counters, iters, _Fetch(counts), bundle
+            if relay_retries > 0 else None, lanes=lanes))
 
     return chunk_fn
 
@@ -782,35 +607,23 @@ def run_monte_carlo_osd(
     post-repair counters at a chunk boundary.
 
     ``mesh`` (parallel/mesh.py; ``device`` is the rank's): as in JAX,
-    every data rank draws the chunk's FULL batch from the one generator of
-    (seed, chunk) and decodes, classifies and repairs its own
-    ``batch_size // num_data`` columns; the chunk's counters and
-    lane-iterations are summed over the data axis (one all_reduce per
-    chunk) and every rank returns the totals.  Each relay retry draws its
-    gammas for the full batch and keeps the rank's columns.  Lanes decode
-    independently, so for min-sum and layered min-sum, relay or not, the
-    counters equal the ``mesh=None`` run's.  A graph axis > 1 decodes
-    each data shard graph-sharded (``mc_graph.make_graph_sharded_osd_chunk``;
-    circulant codes), with JAX's per-graph-shard relay draws, so there only
-    the relay-free counters equal ``mesh=None``'s.  Every graph rank of a
-    data shard then holds the same compacted bundle; each repairs the same
-    failed lanes and classifies them, and the counters are summed over the
-    data axis alone, so each data shard's lanes count once.  Several
-    processes need a mesh (a port mesh spans every rank), or each would
-    count every failure.
+    every data rank draws the chunk's FULL batch, and each relay retry's
+    gammas, from the generators of (seed, chunk) and decodes, classifies
+    and repairs its own ``batch_size // num_data`` columns; every rank
+    returns the totals, summed over ``data`` once a chunk.  For min-sum and
+    layered min-sum the counters equal the ``mesh=None`` run's.  A graph
+    axis > 1 decodes each data shard graph-sharded
+    (``mc_graph.make_graph_sharded_osd_chunk``; circulant codes) with JAX's
+    per-graph-shard relay draws; its graph ranks repair replicas of one
+    bundle, and each data shard counts once.  Several processes need a mesh
+    (a port mesh spans every rank), or each would count every failure.
 
     Returns (counters[NUM_COUNTERS] int64 numpy, total_bp_lane_iterations).
     """
     world = (torch.distributed.get_world_size()
              if torch.distributed.is_available()
              and torch.distributed.is_initialized() else 1)
-    if mesh is not None and not isinstance(mesh, Mesh):
-        raise ValueError(f"mesh must be a parallel.mesh.Mesh, got "
-                         f"{type(mesh).__name__}")
     if world > 1 and mesh is None:
-        # the counters are summed over the mesh's data axis (a port mesh
-        # spans every rank): without one each process would decode the full
-        # batch and count each failure once per process
         raise ValueError(
             "run_monte_carlo_osd with several processes requires a mesh "
             "spanning all of them (mesh=None would decode the full batch in "
@@ -818,26 +631,19 @@ def run_monte_carlo_osd(
     device = torch.device(device)
     with tracing.span("mc.point"):
         with tracing.span("mc.point_setup"):
+            point = _Point(graphs, i_minus_p, mesh, device, init_counters,
+                           progress)
+            i_minus_p = point.i_minus_p
             post = None
             if lam >= 0:
                 cfg = dataclasses.replace(cfg, return_soft=True)
                 post = CSSPostprocessor(graphs, lam=lam).to(device)
-            if mesh is not None and mesh.size(GRAPH_AXIS) > 1:
-                from qec_ldpc_tpu_torch.parallel.mc_graph import (
-                    make_graph_sharded_osd_chunk,
-                )
-
-                chunk_fn = make_graph_sharded_osd_chunk(
-                    mesh, graphs, weight, cfg, batch_size, error_model,
-                    relay_retries)
-            else:
-                chunk_fn = make_osd_chunk(graphs, weight, cfg, batch_size,
-                                          error_model, relay_retries, mesh)
-            i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
-            totals = np.zeros(NUM_COUNTERS, dtype=np.int64)
-            if init_counters is not None:
-                totals += np.asarray(init_counters, dtype=np.int64)
-            total_iters = 0
+            chunk_fn = (make_graph_sharded_osd_chunk(
+                mesh, graphs, weight, cfg, batch_size, error_model,
+                relay_retries) if mesh is not None
+                and mesh.size(GRAPH_AXIS) > 1
+                else make_osd_chunk(graphs, weight, cfg, batch_size,
+                                    error_model, relay_retries, mesh))
             num_chunks = -(-count // batch_size)
 
         def dispatch(c):
@@ -857,17 +663,10 @@ def run_monte_carlo_osd(
                                             iters.to(torch.int64)]))
 
         def finish(item):
-            nonlocal totals, total_iters
             c, fetch = item
             with tracing.span("mc.chunk", c):
                 host = fetch.get()
-                counters = host[:NUM_COUNTERS]
-                chunk_iters = int(host[NUM_COUNTERS:].sum())
-                totals += counters
-                total_iters += chunk_iters
-            if progress is not None:
-                with tracing.span(tracing.OUTSIDE):
-                    progress(c, num_chunks, counters, chunk_iters)
+            point.tally(host, c, num_chunks)
 
         # a one-deep pipeline: chunk c's tail is queued after chunk c + 1's
         # device half, and its counters are read after chunk c + 1's tail is
@@ -883,4 +682,4 @@ def run_monte_carlo_osd(
             pending = out
         if queued is not None:
             finish(queued)
-    return totals, total_iters
+    return point.counters, point.iters

@@ -39,7 +39,7 @@ from qec_ldpc_tpu_torch.decoder import (
     CodeGraphs,
     decode_batch,
 )
-from qec_ldpc_tpu_torch.parallel.montecarlo import (
+from qec_ldpc_tpu_torch.parallel.chunk import (
     chunk_generator,
     sample_syndromes,
 )

@@ -18,6 +18,7 @@ from qec_ldpc_tpu_torch.codes import bicycle_code
 from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs
 from qec_ldpc_tpu_torch.decoder.decode import decode_batch
 from qec_ldpc_tpu_torch.parallel import montecarlo
+from qec_ldpc_tpu_torch.parallel.chunk import chunk_generator, sample_syndromes
 from qec_ldpc_tpu_torch.parallel.mesh import spawn
 from qec_ldpc_tpu_torch.parallel.montecarlo import (
     graph_path,
@@ -65,12 +66,12 @@ def test_reseeded_generator_draws_what_a_fresh_one_draws(g42, entropy,
     graphs, _ = g42
     reused = seeded_generator([1, 2], "cpu")
     for _ in range(2):
-        montecarlo.sample_syndromes(graphs, reused, 3, P_ERR, BATCH,
-                                    error_model, weight_cap)
+        sample_syndromes(graphs, reused, 3, P_ERR, BATCH, error_model,
+                         weight_cap)
         reused.manual_seed(generator_seed(entropy))
-        got = montecarlo.sample_syndromes(graphs, reused, 3, P_ERR, BATCH,
-                                          error_model, weight_cap)
-        want = montecarlo.sample_syndromes(
+        got = sample_syndromes(graphs, reused, 3, P_ERR, BATCH, error_model,
+                               weight_cap)
+        want = sample_syndromes(
             graphs, seeded_generator(entropy, "cpu"), 3, P_ERR, BATCH,
             error_model, weight_cap)
         for g, w in zip(got, want):
@@ -86,8 +87,7 @@ def eager_sum(graphs, test, chunks, cfg, relay=0, shard=(), device="cpu",
     for c in chunks:
         if shard:
             cnt, its = montecarlo._chunk_body(
-                graphs, test, montecarlo.chunk_generator(seed, c, device,
-                                                         *shard),
+                graphs, test, chunk_generator(seed, c, device, *shard),
                 weight, p, cfg, batch, "weight")
         else:
             cnt, its = mc_chunk(graphs, test, seed, c, weight, p, cfg, batch,
@@ -162,9 +162,9 @@ def plain_counters(graphs, test, chunks, cfg, seed, weight, p, batch,
     the kernels' and are not compared."""
     counters = np.zeros(9, np.int64)
     for c in chunks:
-        xe, ze, sx, sz = montecarlo.sample_syndromes(
-            graphs, montecarlo.chunk_generator(seed, c, device), weight, p,
-            batch, error_model, weight_cap)
+        xe, ze, sx, sz = sample_syndromes(
+            graphs, chunk_generator(seed, c, device), weight, p, batch,
+            error_model, weight_cap)
         res = decode_batch(graphs, sx, sz, p, cfg, plain=True)
         counters += classify_batch(test, xe, ze,
                                    res.decisions_x.to(torch.int32),

@@ -29,6 +29,12 @@ from qec_ldpc_tpu_torch.decoder.decode import decode_batch, run_decoder
 from qec_ldpc_tpu_torch.decoder.min_sum import np_log_band
 from qec_ldpc_tpu_torch.kernels import classify_cuda
 from qec_ldpc_tpu_torch.parallel import montecarlo
+from qec_ldpc_tpu_torch.parallel.chunk import (
+    accumulators,
+    chunk_generator,
+    chunk_group,
+    sample_syndromes,
+)
 from qec_ldpc_tpu_torch.parallel.montecarlo import fused_path, run_monte_carlo
 from qec_ldpc_tpu_torch.sampling import (
     RankBasisTest,
@@ -72,9 +78,8 @@ def chunk_inputs(graphs, cfg, weight, p, model, batch, device, chunk=0,
     by ``cfg.algorithm``'s kernel wrapper (its plain loop on the CPU)."""
     if max_iters is not None:
         cfg = dataclasses.replace(cfg, max_iters=max_iters)
-    xe, ze, sx, sz = montecarlo.sample_syndromes(
-        graphs, montecarlo.chunk_generator(SEED, chunk, device), weight, p,
-        batch, model)
+    xe, ze, sx, sz = sample_syndromes(
+        graphs, chunk_generator(SEED, chunk, device), weight, p, batch, model)
     prior = np.float32(cfg.prior_factor) * np.float32(p)
     (vx, itx), (vz, itz) = (run_decoder(g, s, prior, cfg)
                             for g, s in ((graphs.x, sx), (graphs.z, sz)))
@@ -399,8 +404,8 @@ def test_kernel_equals_plain_on_the_card(cuda_device, cards, name,
 def test_graph_path_counts_what_eager_chunks_count(cuda_device, cards, name,
                                                    algorithm):
     """``run_monte_carlo`` on the graph path (fused kernel captured and
-    replayed) counts, group by group, what the eager ``_chunk_group`` counts
-    on the same seed, counters and lane-iterations, and what the unfused
+    replayed) counts, group by group, what eager chunks count through the
+    group loop (``chunk_group``) on the same seed, counters and lane-iterations, and what the unfused
     composition (``decode_batch`` + ``classify_batch``) counts; every chunk
     adds 1 to ``classify.fused``."""
     graphs, test, weight, p, model = _on_card(cards, name, cuda_device)
@@ -416,17 +421,20 @@ def test_graph_path_counts_what_eager_chunks_count(cuda_device, cards, name,
     assert rec.counters["mc.graph_replays"] == chunks - 1
     assert rec.counters["classify.fused"] == chunks
     assert classify_cuda.launches == launches + 2  # eager chunk, capture
+    fused = fused_path(cuda_device, 0, cfg, test)
+    eager = montecarlo._chunk_runner(graphs, test, seed, weight, p, cfg,
+                                     batch, model, 0, None, fused,
+                                     cuda_device)
     for g, (got, got_iters) in enumerate(groups):
         ids = range(3 * g, 3 * g + 3)
-        counters, iters = montecarlo._chunk_group(
-            graphs, test, ids, seed, (), weight, p, cfg, batch, model, 0,
-            cuda_device)
+        counters, iters = chunk_group(eager, ids, accumulators(cuda_device),
+                                      fused)
         assert got.tolist() == counters.tolist()
         assert got_iters == int(iters.sum())
         unfused = np.zeros(9, np.int64)
         for c in ids:
-            xe, ze, sx, sz = montecarlo.sample_syndromes(
-                graphs, montecarlo.chunk_generator(seed, c, cuda_device),
+            xe, ze, sx, sz = sample_syndromes(
+                graphs, chunk_generator(seed, c, cuda_device),
                 weight, p, batch, model)
             res = decode_batch(graphs, sx, sz, p, cfg)
             unfused += classify_batch(

@@ -173,3 +173,43 @@ def test_exports_the_jax_packages_names(package, name):
     assert name in getattr(port, "__all__", [name])
     jax_init = (ROOT / "qec_ldpc_tpu" / package / "__init__.py").read_text()
     assert name in jax_init
+
+
+def _parallel_imports(name: str):
+    """(module imported, inside a function) for each import statement of
+    ``qec_ldpc_tpu_torch/parallel/<name>.py``, read from its syntax tree:
+    importing it at run time would load every module of the package."""
+    import ast
+
+    tree = ast.parse((PORT / "parallel" / f"{name}.py").read_text())
+    nested = {id(node) for fn in ast.walk(tree)
+              if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+              for node in ast.walk(fn)}
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            mods = [f"{node.module}.{a.name}" for a in node.names]
+        elif isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        else:
+            continue
+        out += [(m, id(node) in nested) for m in mods]
+    return out
+
+
+def test_monte_carlo_imports_point_one_way():
+    """The Monte-Carlo layer's imports point one way: ``parallel/chunk.py``
+    imports neither driver, ``mc_graph`` imports ``chunk`` and never
+    ``montecarlo``, and ``montecarlo`` imports everything at module
+    level."""
+    drivers = ("qec_ldpc_tpu_torch.parallel.montecarlo",
+               "qec_ldpc_tpu_torch.parallel.mc_graph")
+    chunk = _parallel_imports("chunk")
+    assert not [m for m, _ in chunk if m.startswith(drivers)], chunk
+    mc_graph = _parallel_imports("mc_graph")
+    assert not [m for m, _ in mc_graph if m.startswith(drivers[0])], mc_graph
+    assert any(m.startswith("qec_ldpc_tpu_torch.parallel.chunk.")
+               for m, _ in mc_graph), mc_graph
+    montecarlo = _parallel_imports("montecarlo")
+    assert not [m for m, nested in montecarlo if nested], montecarlo
+    assert any(m.startswith(drivers[1]) for m, _ in montecarlo), montecarlo

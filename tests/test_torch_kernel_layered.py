@@ -18,7 +18,7 @@ from qec_ldpc_tpu_torch.codes import find_code_params
 from qec_ldpc_tpu_torch.decoder import layered, min_sum
 from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs
 from qec_ldpc_tpu_torch.kernels import build, layered_cuda
-from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
+from qec_ldpc_tpu_torch.parallel.chunk import chunk_generator
 from qec_ldpc_tpu_torch.sampling.errors import sample_weight_w_errors
 
 LLR = min_sum.prior_llr(np.float32(2.0 / 3.0) * np.float32(0.01))

@@ -31,7 +31,7 @@ from qec_ldpc_tpu_torch.kernels import (
     min_sum_cuda,
     placement,
 )
-from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
+from qec_ldpc_tpu_torch.parallel.chunk import chunk_generator
 from qec_ldpc_tpu_torch.sampling.errors import sample_depolarizing_errors
 
 PRIOR = np.float32(2.0 / 3.0) * np.float32(0.01)

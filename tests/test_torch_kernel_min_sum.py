@@ -23,7 +23,7 @@ from qec_ldpc_tpu_torch.decoder import min_sum
 from qec_ldpc_tpu_torch.decoder.decode import CodeGraphs
 from qec_ldpc_tpu_torch.decoder.layout import CirculantGraph
 from qec_ldpc_tpu_torch.kernels import build, layered_cuda, min_sum_cuda, placement
-from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
+from qec_ldpc_tpu_torch.parallel.chunk import chunk_generator
 from qec_ldpc_tpu_torch.sampling.errors import sample_weight_w_errors
 
 LLR = min_sum.prior_llr(np.float32(2.0 / 3.0) * np.float32(0.01))

@@ -20,7 +20,7 @@ from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs, decode_batch
 from qec_ldpc_tpu_torch.decoder.osd import OSDecoder
 from qec_ldpc_tpu_torch.decoder.osd_device import DeviceOSD0, ranking
 from qec_ldpc_tpu_torch.kernels import build, osd0_cuda, placement
-from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
+from qec_ldpc_tpu_torch.parallel.chunk import chunk_generator
 from qec_ldpc_tpu_torch.sampling.errors import (
     sample_depolarizing_errors,
     sample_weight_w_errors,

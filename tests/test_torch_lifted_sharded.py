@@ -38,9 +38,10 @@ from qec_ldpc_tpu.parallel.lifted_sharded import (
 )
 from qec_ldpc_tpu_torch.decoder import BPConfig, decode_batch
 from qec_ldpc_tpu_torch.kernels import bp_cuda, min_sum_cuda
+from qec_ldpc_tpu_torch.parallel.chunk import chunk_generator
 from qec_ldpc_tpu_torch.parallel.lifted_sharded import ShardedLiftedGraph
 from qec_ldpc_tpu_torch.parallel.mesh import spawn
-from qec_ldpc_tpu_torch.parallel.montecarlo import _chunk_body, chunk_generator
+from qec_ldpc_tpu_torch.parallel.montecarlo import _chunk_body
 from qec_ldpc_tpu_torch.sampling import (
     C_CORRECTED,
     C_LOGICAL,

@@ -27,8 +27,9 @@ import torch
 from qec_ldpc_tpu_torch import construct_code
 from qec_ldpc_tpu_torch.codes import toric_code
 from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs
+from qec_ldpc_tpu_torch.parallel.chunk import chunk_generator
 from qec_ldpc_tpu_torch.parallel.mesh import spawn
-from qec_ldpc_tpu_torch.parallel.montecarlo import _chunk_body, chunk_generator
+from qec_ldpc_tpu_torch.parallel.montecarlo import _chunk_body
 from qec_ldpc_tpu_torch.sampling import (
     C_CORRECTED,
     C_LOGICAL,

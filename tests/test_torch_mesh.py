@@ -25,12 +25,8 @@ from qec_ldpc_tpu.parallel.montecarlo import (
 from qec_ldpc_tpu_torch import construct_code
 from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs
 from qec_ldpc_tpu_torch.parallel import mesh as port_mesh
-from qec_ldpc_tpu_torch.parallel.montecarlo import (
-    _chunk_body,
-    chunk_generator,
-    relay_draws,
-    run_monte_carlo,
-)
+from qec_ldpc_tpu_torch.parallel.chunk import chunk_generator, relay_draws
+from qec_ldpc_tpu_torch.parallel.montecarlo import _chunk_body, run_monte_carlo
 from qec_ldpc_tpu_torch.sampling import C_TESTED, make_rank_basis_test
 
 from tests import torch_mesh_workers

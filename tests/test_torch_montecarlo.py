@@ -26,11 +26,13 @@ from qec_ldpc_tpu_torch.convert import (
 )
 from qec_ldpc_tpu_torch.decoder import BPConfig, CodeGraphs, decode_batch
 from qec_ldpc_tpu_torch.harness import stats
-from qec_ldpc_tpu_torch.parallel.montecarlo import (
+from qec_ldpc_tpu_torch.parallel.chunk import (
     RELAY_STREAM,
     chunk_generator,
-    effective_steps_per_call,
     relay_draws,
+)
+from qec_ldpc_tpu_torch.parallel.montecarlo import (
+    effective_steps_per_call,
     run_monte_carlo,
 )
 from qec_ldpc_tpu_torch.sampling import (

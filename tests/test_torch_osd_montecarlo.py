@@ -23,6 +23,7 @@ from qec_ldpc_tpu_torch.convert import graphs_from_jax, rank_basis_test_from_num
 from qec_ldpc_tpu_torch.decoder import BPConfig, DecodeResult
 from qec_ldpc_tpu_torch.decoder.osd import CSSPostprocessor
 from qec_ldpc_tpu_torch.parallel import montecarlo
+from qec_ldpc_tpu_torch.parallel.chunk import _classify_and_compact
 from qec_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS, Mesh
 from qec_ldpc_tpu_torch.parallel.montecarlo import (
     run_monte_carlo,
@@ -67,7 +68,7 @@ def port_tail(tg, ttest, post, xe, ze, sx, sz, res):
                         error_code=t(res.error_code), iters_x=None,
                         iters_z=None, iter_samples_x=None, iter_samples_z=None,
                         soft_x=t(res.soft_x), soft_z=t(res.soft_z))
-    counters_ok, counts, bundle = montecarlo._classify_and_compact(
+    counters_ok, counts, bundle = _classify_and_compact(
         ttest, t(xe), t(ze), t(sx), t(sz), tres)
     failed = montecarlo._repair_and_classify(post, ttest, counts.numpy(), bundle)
     return counters_ok, counts, failed

@@ -21,7 +21,7 @@ from qec_ldpc_tpu_torch.decoder.decode import (
     SYNDROME_FAIL_Z,
 )
 from qec_ldpc_tpu_torch.decoder.relay import RelayDraws, relay_decode_batch
-from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator, sample_syndromes
+from qec_ldpc_tpu_torch.parallel.chunk import chunk_generator, sample_syndromes
 
 # one intra-op thread: the suite runs in several worker processes at once
 torch.set_num_threads(1)

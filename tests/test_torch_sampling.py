@@ -15,7 +15,7 @@ from qec_ldpc_tpu.sampling.classify import classify_batch_np
 from qec_ldpc_tpu.sampling.classify import make_rank_basis_test as jax_rank_basis_test
 from qec_ldpc_tpu.sampling.errors import _accumulate_hits as jax_accumulate_hits
 from qec_ldpc_tpu_torch.convert import rank_basis_test_from_numpy
-from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
+from qec_ldpc_tpu_torch.parallel.chunk import chunk_generator
 from qec_ldpc_tpu_torch.sampling import (
     NUM_COUNTERS,
     classify_batch,

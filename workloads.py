@@ -107,7 +107,7 @@ def osd_failed_lanes(graphs, seed: int, device, batch: int,
     import torch
 
     from qec_ldpc_tpu_torch.decoder.decode import BPConfig, decode_batch
-    from qec_ldpc_tpu_torch.parallel.montecarlo import chunk_generator
+    from qec_ldpc_tpu_torch.parallel.chunk import chunk_generator
     from qec_ldpc_tpu_torch.sampling.errors import (
         sample_depolarizing_errors,
         sample_weight_w_errors,
