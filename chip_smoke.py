@@ -106,8 +106,9 @@ exit) if any phase fails:
              chunks of 2048: min-sum held to the JAX package's record
              (benchmarks/results/bicycle_gross_r3.jsonl line 2) and
              sum-product to a JAX-package CPU run (GROSS_SUM_PRODUCT) by
-             two-proportion tests (|z| < 4); each run launches its kernel
-             twice per chunk and the fused decide/classify kernel once, and
+             two-proportion tests (|z| < 4); min-sum launches K5 once per
+             chunk (both sectors in one launch, phase 30), sum-product K6
+             twice, each the fused decide/classify kernel once, and each
              syncs at most once per group
  13. relay   the gross code at p = 0.03, min-sum with 8 relay retries, 4
              chunks: K5 must launch damped retries and every repaired lane
@@ -210,7 +211,8 @@ exit) if any phase fails:
              [[756,16,34]], W=24, p = 0.01, at most 30 iterations, 4 chunks
              of 2048; min-sum and sum-product counters and lane-iterations
              equal the single-device decode of the same samples through K5
-             and K6, no rank launches a kernel, and every rank issues two
+             (one launch a chunk, both sectors) and K6 (two), no rank
+             launches a kernel, and every rank issues two
              all_gathers per loop iteration and six a chunk; relay with 8
              retries, cut to 1 chunk, twice: deterministic, the tested
              count kept, no more syndrome failures; then the CLI with
@@ -257,6 +259,16 @@ exit) if any phase fails:
              p = 0.01, 2048 lanes: the counters and lane-iteration sums bit
              for bit, the kernel's time (CUDA events and profiler device
              time) beside its byte bound, and the plain composition's time
+ 30. pair    K5 with both sectors in one launch against one launch a
+             sector, on each lifted cell's own syndromes (the gross code at
+             p = 0.01 and 2048 lanes, [[756,16,34]] at p = 0.10 and 16,384):
+             messages and per-lane iterations bit for bit those of one
+             launch a sector and of plain min-sum, each sector's histogram
+             of per-lane iterations (1, 11, ... 91, 100), and the
+             profiler's device time of X alone, Z alone and the pair, in
+             turns, beside CUDA events for two launches one after the
+             other, two launches on two streams, and the pair, each eager
+             and replayed from a CUDA graph
 
 Phases 20, 21, 23, 24, 26, 27's graph demo and 28's worlds share one card
 between their ranks, and gloo stages every collective through host memory: their
@@ -958,6 +970,16 @@ def compare_min_sum(graph, syndrome, llr: float, cfg: BPConfig, damping=None):
     v_k, it_k = min_sum_cuda.min_sum_run(graph, syndrome, llr, cfg.max_iters,
                                          cfg.check_every, cfg.conv_low,
                                          cfg.min_sum_alpha, damping=damping)
+    return min_sum_against_plain(graph, syndrome, llr, cfg, v_k, it_k,
+                                 damping)
+
+
+def min_sum_against_plain(graph, syndrome, llr: float, cfg: BPConfig,
+                          v_k: torch.Tensor, it_k: torch.Tensor,
+                          damping=None):
+    """A min-sum kernel's messages ``v_k`` and per-lane iterations ``it_k``
+    on one graph against plain min-sum on the same syndromes, as
+    :func:`compare_min_sum` counts them."""
     v_p, lanes_p = min_sum.min_sum_run_lanes(
         graph, syndrome, llr, cfg.max_iters, cfg.check_every, cfg.conv_low,
         cfg.min_sum_alpha, damping=damping)
@@ -1154,17 +1176,24 @@ def monte_carlo(label: str, graphs: CodeGraphs, weight: int, p_err: float,
 
 
 def check_launches(label: str, counts: dict, kernel: str, chunks: int,
-                   fused: bool) -> int:
-    """The run launched ``kernel`` twice per chunk (X and Z), the fused
-    decide/classify kernel once per chunk where ``fused`` (sum-product and
-    min-sum) and never otherwise, and nothing else (``counts`` from
+                   fused: bool, per_chunk: int = 2) -> int:
+    """The run launched ``kernel`` ``per_chunk`` times per chunk (X and Z;
+    once where both sectors share a launch), the fused decide/classify
+    kernel once per chunk where ``fused`` (sum-product and min-sum) and
+    never otherwise, and nothing else (``counts`` from
     :func:`device_launches`); returns ``kernel``'s count."""
     expected = {k: 0 for k in counts}
-    expected[kernel] = 2 * chunks
+    expected[kernel] = per_chunk * chunks
     expected["decide_classify"] = chunks if fused else 0
     check(counts == expected, f"{label}: launch counts {counts}, expected "
                               f"{expected}")
     return counts[kernel]
+
+
+#: decode launches a chunk on the lifted main paths, stated here and not
+#: asked of the program: K5 decodes both sectors in one launch (phase 30),
+#: K6 one sector a launch
+LIFTED_LAUNCHES_PER_CHUNK = {"lifted_min_sum": 1, "lifted_bp": 2}
 
 
 def gate_headline(label: str, counters, two_sided: bool) -> None:
@@ -2244,7 +2273,8 @@ def single_device(label: str, graphs: CodeGraphs, logical, chunks: int,
     """The data-only mesh of one data shard on the same samples (the
     generators of (seed, chunk, data index 0), as ``make_sharded_chunk``
     draws them), decoded on this card by ``kernel``, which must launch
-    twice a chunk.  Returns (counters, executed lane-iterations, X + Z loop
+    ``LIFTED_LAUNCHES_PER_CHUNK[kernel]`` times a chunk.  Returns (counters,
+    executed lane-iterations, X + Z loop
     iterations: each chunk's largest lane count, which is the count of a
     loop that runs until its last lane is done)."""
     reset_counts()
@@ -2261,7 +2291,7 @@ def single_device(label: str, graphs: CodeGraphs, logical, chunks: int,
         lane_iters += int(res.iter_samples_x + res.iter_samples_z)
         loops += int(res.iters_x + res.iters_z)
     counts = read_counts()
-    check(counts[kernel] == 2 * chunks,
+    check(counts[kernel] == LIFTED_LAUNCHES_PER_CHUNK[kernel] * chunks,
           f"{label} single-device reference: launches {counts}")
     return counters, lane_iters, loops
 
@@ -2293,7 +2323,7 @@ def lifted_mesh_phase(device, smi: str) -> dict:
         want, want_iters, loop = single_device(
             name, graphs, logical, chunks, seed, weight, p_err,
             BPConfig(**cfg), "weight", kernel, device)
-        launches[kernel] = 2 * chunks
+        launches[kernel] = LIFTED_LAUNCHES_PER_CHUNK[kernel] * chunks
         got = ranks[0][name]["counters"]
         got_iters = ranks[0][name]["lane_iters"]
         equal = bool(np.array_equal(got, want)) and got_iters == want_iters
@@ -2493,6 +2523,135 @@ def decide_classify_phase(device) -> dict:
             device_kernel="decide_classify_kernel", cell=label,
             bound_ms=round(bound_ms, 5), bound_by="bytes")
         out[label] = (k_ms, p_ms, bound_ms)
+    return out
+
+
+# phase 30: the K5 pair on each lifted cell's own syndromes: (code, p,
+# lanes a sector, timed calls)
+K5_PAIR_CELLS = ((GROSS, GROSS_P, BATCH, 50),
+                 ("[[756,16,34]]", 0.10, OSD_BATCH, 10))
+K5_PAIR_SEED = 2**31 + 23
+
+
+def iteration_histogram(iters: torch.Tensor) -> dict[int, int]:
+    """Lanes by executed iterations: a lane stops after the test of
+    iteration n (n = 0, 10, ... 90) with n + 1 iterations, or runs all
+    MAX_ITERS."""
+    values, counts = torch.unique(iters, return_counts=True)
+    return {int(v): int(c) for v, c in zip(values.cpu(), counts.cpu())}
+
+
+def graph_ms(fn, reps: int) -> float:
+    """ms per replay of ``fn()`` captured once in a CUDA graph (forks onto
+    other streams become parallel branches), over ``reps`` replays."""
+    fn()  # warm-up: builds, caches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, reps)
+
+
+def k5_pair_phase(device) -> dict:
+    """Phase 30: both sectors of each lifted cell's chunk in one K5 launch
+    (``lifted_min_sum_pair_run``) against one launch a sector, on the
+    cell's own syndromes: the pair's messages and per-lane iterations bit
+    for bit those of one launch a sector and of plain min-sum
+    (:func:`min_sum_against_plain`, each sector), each sector's histogram
+    of per-lane iterations, and the profiler's device time of X alone, Z
+    alone and the pair, in turns, beside CUDA events for two launches one
+    after the other, two launches on two streams, and the pair, eager and
+    replayed from a CUDA graph.  Returns code -> (x ms, z ms, pair ms),
+    device time."""
+    phase("30 K5 pair")
+    kernel = "lifted_min_sum_kernel"
+    cfg = BPConfig(max_iters=MAX_ITERS, check_every=10, algorithm="min-sum")
+    side = torch.cuda.Stream(device)
+    out = {}
+    for name, p_err, batch, reps in K5_PAIR_CELLS:
+        graphs = known_bicycle_code(name).build_graphs()
+        sx, sz = syndromes(graphs, 0, K5_PAIR_SEED, device, p_err=p_err,
+                           batch=batch)
+        llr_p = min_sum.prior_llr(np.float32(BPConfig().prior_factor)
+                                  * np.float32(p_err))
+
+        def one(graph, syn):
+            return lifted_min_sum_cuda.lifted_min_sum_run(
+                graph, syn, llr_p, cfg.max_iters, cfg.check_every,
+                cfg.conv_low, cfg.min_sum_alpha)
+
+        def pair():
+            return lifted_min_sum_cuda.lifted_min_sum_pair_run(
+                (graphs.x, graphs.z), (sx, sz), llr_p, cfg.max_iters,
+                cfg.check_every, cfg.conv_low, cfg.min_sum_alpha)
+
+        def two():
+            return one(graphs.x, sx), one(graphs.z, sz)
+
+        def two_streams():
+            # X on the current stream, Z beside it on ``side``
+            main = torch.cuda.current_stream(device)
+            side.wait_stream(main)
+            x = one(graphs.x, sx)
+            with torch.cuda.stream(side):
+                z = one(graphs.z, sz)
+            main.wait_stream(side)
+            return x, z
+
+        before = lifted_min_sum_cuda.launches
+        singles, paired = two(), pair()
+        torch.cuda.synchronize()
+        check(lifted_min_sum_cuda.launches == before + 3,
+              f"K5 pair {name}: launches {lifted_min_sum_cuda.launches - before}")
+        mismatches = sum(bit_mismatches(v, w)[0] + int((i != j).sum())
+                         for (v, i), (w, j) in zip(paired, singles))
+        check(mismatches == 0, f"K5 pair {name}: {mismatches} mismatches "
+                               f"against one launch a sector")
+        for side_name, graph, syn, (v, iters) in zip(
+                "XZ", (graphs.x, graphs.z), (sx, sz), paired):
+            mism, err, plain_iters, nans = min_sum_against_plain(
+                graph, syn, llr_p, cfg, v, iters)
+            say("check", kernel="lifted_min_sum pair", code=json.dumps(name),
+                graph=side_name, p=p_err, batch=batch, iters=plain_iters,
+                nan_entries=nans, mismatches=mism, max_abs_err=err)
+            check(mism == 0, f"K5 pair {name} {side_name}: disagrees with "
+                             f"plain min-sum on {mism} entries")
+        for side_name, (_, iters) in zip("XZ", singles):
+            hist = iteration_histogram(iters)
+            past = sum(c for n, c in hist.items() if n > 11)
+            say("k5pair", code=json.dumps(name), p=p_err, lanes=batch,
+                sector=side_name, histogram=json.dumps(hist),
+                lanes_past_11=past, share_past_11=f"{past / batch:.5f}",
+                mean_iters=f"{float(iters.float().mean()):.4f}")
+        x_ms = [device_ms(lambda: one(graphs.x, sx), reps, kernel)]
+        z_ms = [device_ms(lambda: one(graphs.z, sz), reps, kernel)]
+        pair_ms = [device_ms(pair, reps, kernel),
+                   device_ms(pair, reps, kernel)]
+        z_ms.append(device_ms(lambda: one(graphs.z, sz), reps, kernel))
+        x_ms.append(device_ms(lambda: one(graphs.x, sx), reps, kernel))
+        # in turns, each eager and replayed from a graph, as the chunk is
+        timed = {"two": two, "two_streams": two_streams, "pair": pair}
+        events = {k: [] for k in timed}
+        graphed = {k: [] for k in timed}
+        for order in (("two", "two_streams", "pair"),
+                      ("pair", "two_streams", "two")):
+            for k in order:
+                events[k].append(round(time_ms(timed[k], reps), 4))
+                graphed[k].append(round(graph_ms(timed[k], reps), 4))
+        xz = float(np.mean(x_ms) + np.mean(z_ms))
+        say("time", kernel="lifted_min_sum pair", code=json.dumps(name),
+            p=p_err, lanes=batch, identical=mismatches == 0,
+            x_device_ms=[round(t, 4) for t in x_ms],
+            z_device_ms=[round(t, 4) for t in z_ms],
+            pair_device_ms=[round(t, 4) for t in pair_ms],
+            pair_over_x_plus_z=f"{float(np.mean(pair_ms)) / xz:.4f}",
+            two_launches_event_ms=events["two"],
+            two_streams_event_ms=events["two_streams"],
+            pair_event_ms=events["pair"],
+            two_launches_graph_ms=graphed["two"],
+            two_streams_graph_ms=graphed["two_streams"],
+            pair_graph_ms=graphed["pair"])
+        out[name] = (float(np.mean(x_ms)), float(np.mean(z_ms)),
+                     float(np.mean(pair_ms)))
     return out
 
 
@@ -2917,8 +3076,9 @@ def main() -> int:
             label, gross, 0, GROSS_P, c, CHUNKS, 5, logical_gross, device,
             error_model="depolarizing")
         check(syncs <= 2, f"{label}: {syncs} host syncs in 2 groups")
-        launches[kernel] = check_launches(label, counts, kernel, CHUNKS,
-                                          fused=True)
+        launches[kernel] = check_launches(
+            label, counts, kernel, CHUNKS, fused=True,
+            per_chunk=LIFTED_LAUNCHES_PER_CHUNK[kernel])
         if kernel == "lifted_min_sum":
             fused_launches["gross-ms-p01"] = counts["decide_classify"]
         gate_two_proportion(label, counters, reference)
@@ -2949,6 +3109,7 @@ def main() -> int:
                          GROSS_RELAY_RETRIES, device)
 
     fused_times = decide_classify_phase(device)
+    k5_pair_phase(device)
 
     osd_times = osd_phases(device, g610, gross, bb756, logical_610,
                            logical_gross, worst, times, launches)

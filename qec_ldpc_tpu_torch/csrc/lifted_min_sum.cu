@@ -2,7 +2,8 @@
 // graph: PCM blocks that are sums of monomial permutations over Z_P or
 // Z_l x Z_m (bivariate bicycle, hypergraph-product and toric codes).  The
 // whole decode loop of one graph, for a batch of syndromes, in ONE launch,
-// with an optional per-edge damping operand (the relay decoder).
+// with an optional per-edge damping operand (the relay decoder); or, undamped,
+// of both graphs of a code, X and Z, in one launch.
 //
 // Replaces the TPU kernel
 // qec_ldpc_tpu/kernels/lifted_min_sum_pallas.py::lifted_min_sum_run_pallas
@@ -57,13 +58,28 @@
 //     arrays, no guards); threads walk the checks, then the
 //     variables, with the stride's index steps precomputed; the convergence
 //     test rides on the second barrier (__syncthreads_or).
+//   * Both sectors in one grid (qec_lifted_min_sum_pair).  Under early exit
+//     a launch is bounded by its slowest lane, not by its work: in the gross
+//     min-sum cell (p = 0.01, 2048 lanes) the bulk stops after 1 or 11
+//     iterations, and about 4 lanes in 10,000 run on to max_iters, one lane
+//     in about 40% of the sectors.  That lane decodes alone on a nearly
+//     empty SM for 100 iterations: X with one such lane took 0.131 ms, Z
+//     with none 0.045 ms.  One launch of a sector at a time pays that tail
+//     once a sector; the pair interleaves the two sectors' CTAs in one grid,
+//     so their slow lanes run at the same time and each sector's bulk fills
+//     the SMs the other's tail leaves idle.  Each lane computes what it
+//     computes in a launch of its sector alone, bit for bit; a grid of one
+//     sector is the same kernel with kSectors = 1.
 //
-// Measured on an H100 (80GB HBM3, 700 W; chip_smoke.py and profile_cells.py,
-// PERF.md section 6): 100 fixed iterations of the gross X graph at batch
+// Measured on an H100 (80GB HBM3, 700 W; chip_smoke.py, perfbench, PERF.md
+// sections 5 and 6): 100 fixed iterations of the gross X graph at batch
 // 2048 take 0.39 ms, against 0.88-0.90 ms for the first design and a bound
-// of 0.02 ms (issue- and latency-bound, as K2); a launch in the gross
-// min-sum cell 0.073 ms against 0.41, in the gross relay cell 0.19 ms
-// against 0.95-0.96.
+// of 0.02 ms (issue- and latency-bound, as K2); in the gross relay cell a
+// launch takes 0.19 ms against 0.95-0.96.  On 32 chunks of the gross
+// min-sum cell's traffic the pair takes 0.124 ms a chunk against 0.152 for
+// two launches, and in that cell's traced run 0.121 ms against 0.150; at
+// the quality cell's 16,384 lanes of [[756,16,34]], many waves, the pair
+// reads 0.91-1.00 of two launches.
 //
 // Layout of the operands: csrc/lifted.cuh (messages (E*P, batch) float32,
 // check-major, check-indexed; the batch trailing).
@@ -75,6 +91,7 @@
 #include <math.h>
 #include <stdint.h>
 
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
@@ -85,6 +102,17 @@ constexpr int kMaxThreads = 1024;
 // bits, each 16-byte aligned.
 struct Placement {
   int v_shared, state_shared, damping_shared;
+};
+
+// One sector of a launch, as the host describes it: its graph's routing
+// and its own operands (device pointers; the layouts above
+// qec_lifted_min_sum).
+struct Sector {
+  Routing g;
+  const int32_t* syndrome;
+  const float* damping;  // NULL: the undamped update
+  float* v_out;
+  int32_t* iters;
 };
 
 __device__ __forceinline__ size_t align16(size_t n) {
@@ -101,20 +129,34 @@ __device__ __forceinline__ T* carve(bool shared, size_t bytes,
 }
 
 // kDv: the variable degree Dv, at compile time.  kAllShared: every array in
-// shared memory, so the compiler emits shared loads and stores.
-template <int kDv, bool kAllShared>
+// shared memory, so the compiler emits shared loads and stores.  kSectors:
+// the sectors of the grid, interleaved: CTA b decodes lane b / 2 of sector
+// b % 2 (X: g0, syndrome0, v_out0, iters0; Z: the ...1 operands), so
+// neither sector's lanes queue behind the whole of the other's.  At
+// kSectors = 1 the ...1 operands are unused and every operand the lane reads
+// sits at a fixed offset of the parameters, as in a launch of one sector
+// alone; the damping is the one sector's (a pair is undamped).
+template <int kDv, bool kAllShared, int kSectors>
 __global__ void __launch_bounds__(kMaxThreads)
-lifted_min_sum_kernel(const Routing g, const Placement pl,
-                      const int32_t* __restrict__ syndrome,
-                      float* __restrict__ v_out, float* __restrict__ scratch,
+lifted_min_sum_kernel(const Routing g0, const Placement pl,
+                      const int32_t* __restrict__ syndrome0,
+                      float* __restrict__ v_out0, float* __restrict__ scratch,
                       const size_t slab_floats,
                       const float* __restrict__ damping,
-                      int32_t* __restrict__ iters, const int batch,
+                      int32_t* __restrict__ iters0, const int batch,
                       const float prior_llr, const int max_iters,
                       const int check_every, const float band,
-                      const float alpha) {
+                      const float alpha, const Routing g1,
+                      const int32_t* __restrict__ syndrome1,
+                      float* __restrict__ v_out1,
+                      int32_t* __restrict__ iters1) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = blockIdx.x;
+  const bool z = kSectors == 2 && (blockIdx.x & 1);
+  const int lane = kSectors == 2 ? (int)(blockIdx.x >> 1) : (int)blockIdx.x;
+  const Routing& g = z ? g1 : g0;
+  const int32_t* __restrict__ syndrome = z ? syndrome1 : syndrome0;
+  float* __restrict__ v_out = z ? v_out1 : v_out0;
+  int32_t* __restrict__ iters = z ? iters1 : iters0;
   const int tid = threadIdx.x;
   const int T = blockDim.x;
   const int P = g.P, gl = g.l, gm = g.m, Dc = g.Dc, Vb = g.V;
@@ -136,7 +178,6 @@ lifted_min_sum_kernel(const Routing g, const Placement pl,
                                                4 * (size_t)edges, sp, slab)
                     : nullptr;
   unsigned char* SYN = sp;
-
   // stage the lane's strided columns once
   for (int c = tid; c < checks; c += T) {
     SYN[c] = syndrome[(size_t)c * ld + lane] != 0;
@@ -238,24 +279,87 @@ lifted_min_sum_kernel(const Routing g, const Placement pl,
   if (tid == 0) iters[lane] = n;
 }
 
-template <int kDv>
-cudaError_t launch(bool all_shared, const Routing& g, const Placement& pl,
-                   size_t smem_bytes, size_t slab_floats, int threads,
-                   cudaStream_t stream, const int32_t* syndrome, float* v,
-                   float* scratch, const float* damping, int32_t* iters,
-                   int batch, float prior_llr, int max_iters, int check_every,
-                   float band, float alpha) {
-  auto kernel = all_shared ? &lifted_min_sum_kernel<kDv, true>
-                           : &lifted_min_sum_kernel<kDv, false>;
+// One launch of sector x alone (kSectors = 1; z is not read) or of x and z
+// (kSectors = 2), which share the placement, the CTA size and Dv.
+template <int kDv, int kSectors>
+cudaError_t launch(bool all_shared, const Sector& x, const Sector& z,
+                   const Placement& pl, size_t smem_bytes, size_t slab_floats,
+                   int threads, cudaStream_t stream, float* scratch,
+                   int batch, float prior_llr, int max_iters,
+                   int check_every, float band, float alpha) {
+  // a pair keeps every array in shared memory: no slab variant of it
+  auto kernel = &lifted_min_sum_kernel<kDv, true, kSectors>;
+  if constexpr (kSectors == 1) {
+    if (!all_shared) kernel = &lifted_min_sum_kernel<kDv, false, 1>;
+  }
   // above 48 KB a CTA needs the opt-in, which belongs to the current
   // device: set on every launch; a size above the device's limit fails here
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (attr != cudaSuccess) return attr;
-  kernel<<<batch, threads, smem_bytes, stream>>>(
-      g, pl, syndrome, v, scratch, slab_floats, damping, iters, batch,
-      prior_llr, max_iters, check_every, band, alpha);
+  kernel<<<kSectors * batch, threads, smem_bytes, stream>>>(
+      x.g, pl, x.syndrome, x.v_out, scratch, slab_floats, x.damping, x.iters,
+      batch, prior_llr, max_iters, check_every, band, alpha, z.g, z.syndrome,
+      z.v_out, z.iters);
   return cudaGetLastError();
+}
+
+// Fill `s` from a graph's HOST tables (describe_lifted's) and the sector's
+// device pointers; false where describe_lifted refuses them.
+inline bool describe_sector(Sector* s, const int32_t* syndrome,
+                            const float* damping, float* v, int32_t* iters,
+                            const int32_t* edges, const int32_t* ranks, int l,
+                            int m, int C, int V, int Dc, int Dv, int E,
+                            int batch, int max_iters, int check_every) {
+  Lifted lg;
+  if (!describe_lifted(&lg, edges, ranks, l, m, C, V, Dc, Dv, E, batch,
+                       max_iters, check_every)) {
+    return false;
+  }
+  s->g = resolve_routing(lg, E);
+  s->syndrome = syndrome;
+  s->damping = damping;
+  s->v_out = v;
+  s->iters = iters;
+  return true;
+}
+
+// launch<kDv, kSectors> of the described sectors, each of Dv `Dv`, under
+// the plan's placement, CTA size and sizes, after the plan's checks.
+template <int kSectors>
+int launch_sectors(const Sector& x, const Sector& z, int Dv, float* scratch,
+                   int batch,
+                   float prior_llr, int max_iters, int check_every,
+                   float band, float alpha, int threads,
+                   const Placement& pl, long long smem_bytes,
+                   long long slab_floats, void* stream) {
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      smem_bytes < 0 || slab_floats < 0 ||
+      (slab_floats > 0 && scratch == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool all = slab_floats == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+#define QEC_LIFTED_MIN_SUM_DV(KDV)                                            \
+  case KDV:                                                                   \
+    err = launch<KDV, kSectors>(all, x, z, pl, (size_t)smem_bytes,            \
+                                (size_t)slab_floats, threads, st, scratch,    \
+                                batch, prior_llr, max_iters, check_every,     \
+                                band, alpha);                                 \
+    break;
+  switch (Dv) {
+    QEC_LIFTED_MIN_SUM_DV(1)
+    QEC_LIFTED_MIN_SUM_DV(2)
+    QEC_LIFTED_MIN_SUM_DV(3)
+    QEC_LIFTED_MIN_SUM_DV(4)
+    QEC_LIFTED_MIN_SUM_DV(5)
+    QEC_LIFTED_MIN_SUM_DV(6)
+    QEC_LIFTED_MIN_SUM_DV(7)
+    QEC_LIFTED_MIN_SUM_DV(8)
+  }
+#undef QEC_LIFTED_MIN_SUM_DV
+  return (int)err;
 }
 
 }  // namespace
@@ -279,35 +383,45 @@ extern "C" int qec_lifted_min_sum(const int32_t* syndrome, float* v,
                                   int threads, int v_shared, int state_shared,
                                   int damping_shared, long long smem_bytes,
                                   long long slab_floats, void* stream) {
-  Lifted lg;
-  if (!describe_lifted(&lg, edges, ranks, l, m, C, V, Dc, Dv, E, batch,
-                       max_iters, check_every) ||
-      threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
-      smem_bytes < 0 || slab_floats < 0 ||
-      (slab_floats > 0 && scratch == nullptr)) {
+  Sector s;
+  if (!describe_sector(&s, syndrome, damping, v, iters, edges, ranks, l, m, C,
+                       V, Dc, Dv, E, batch, max_iters, check_every)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Routing g = resolve_routing(lg, E);
   const Placement pl{v_shared != 0, state_shared != 0, damping_shared != 0};
-  const bool all = slab_floats == 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-#define QEC_LIFTED_MIN_SUM_DV(KDV)                                            \
-  case KDV:                                                                   \
-    err = launch<KDV>(all, g, pl, (size_t)smem_bytes, (size_t)slab_floats,    \
-                      threads, st, syndrome, v, scratch, damping, iters,      \
-                      batch, prior_llr, max_iters, check_every, band, alpha); \
-    break;
-  switch (Dv) {
-    QEC_LIFTED_MIN_SUM_DV(1)
-    QEC_LIFTED_MIN_SUM_DV(2)
-    QEC_LIFTED_MIN_SUM_DV(3)
-    QEC_LIFTED_MIN_SUM_DV(4)
-    QEC_LIFTED_MIN_SUM_DV(5)
-    QEC_LIFTED_MIN_SUM_DV(6)
-    QEC_LIFTED_MIN_SUM_DV(7)
-    QEC_LIFTED_MIN_SUM_DV(8)
+  return launch_sectors<1>(s, s, Dv, scratch, batch, prior_llr, max_iters,
+                           check_every, band, alpha, threads, pl, smem_bytes,
+                           slab_floats, stream);
+}
+
+// Both sectors of a chunk, X then Z, in ONE launch of 2 * batch CTAs: each
+// sector's operands as qec_lifted_min_sum's, undamped and with every array
+// in shared memory (the wrapper pairs only graphs whose plans are equal
+// and need no slab, kernels/lifted_min_sum_cuda.py::pair_plan), so each
+// lane computes what a one-sector launch computes, bit for bit, iters
+// included.  Returns cudaErrorInvalidValue where either graph is refused
+// or the two degrees Dv differ.
+extern "C" int qec_lifted_min_sum_pair(
+    const int32_t* syndrome_x, float* v_x, int32_t* iters_x,
+    const int32_t* edges_x, const int32_t* ranks_x, int l_x, int m_x, int C_x,
+    int V_x, int Dc_x, int Dv_x, int E_x, const int32_t* syndrome_z,
+    float* v_z, int32_t* iters_z, const int32_t* edges_z,
+    const int32_t* ranks_z, int l_z, int m_z, int C_z, int V_z, int Dc_z,
+    int Dv_z, int E_z, int batch, float prior_llr, int max_iters,
+    int check_every, float band, float alpha, int threads, int v_shared,
+    int state_shared, long long smem_bytes, void* stream) {
+  Sector x, z;
+  if (Dv_x != Dv_z ||
+      !describe_sector(&x, syndrome_x, nullptr, v_x, iters_x, edges_x,
+                       ranks_x, l_x, m_x, C_x, V_x, Dc_x, Dv_x, E_x, batch,
+                       max_iters, check_every) ||
+      !describe_sector(&z, syndrome_z, nullptr, v_z, iters_z, edges_z,
+                       ranks_z, l_z, m_z, C_z, V_z, Dc_z, Dv_z, E_z, batch,
+                       max_iters, check_every)) {
+    return (int)cudaErrorInvalidValue;
   }
-#undef QEC_LIFTED_MIN_SUM_DV
-  return (int)err;
+  const Placement pl{v_shared != 0, state_shared != 0, 0};
+  return launch_sectors<2>(x, z, Dv_x, nullptr, batch, prior_llr, max_iters,
+                           check_every, band, alpha, threads, pl, smem_bytes,
+                           0, stream);
 }

@@ -11,7 +11,8 @@ re-encoding the decision.  Per algorithm:
     Runs through ``kernels/bp_cuda.bp_run`` (K1, or K6 on a lifted graph).
   * ``"min-sum"``: the LLR image, flipped if any incident LLR is <= 0;
     convergence failures from the LLR band test.  Runs through
-    ``kernels/min_sum_cuda.min_sum_run`` (K2/K4, or K5 on a lifted graph).
+    ``kernels/min_sum_cuda.min_sum_run`` (K2/K4, or K5 on a lifted graph;
+    both lifted graphs in one K5 launch where :func:`paired_path` holds).
   * ``"layered-min-sum"``: flipped where the posterior LLR is <= 0; a
     convergence failure IS a syndrome failure.  Runs through
     ``kernels/layered_cuda.layered_run``; circulant graphs only (the block
@@ -48,7 +49,12 @@ from qec_ldpc_tpu_torch.decoder.min_sum import (
     prior_llr,
 )
 from qec_ldpc_tpu_torch.decoder.sum_product import BPConfig, _not_converged_mask
-from qec_ldpc_tpu_torch.kernels import bp_cuda, layered_cuda, min_sum_cuda
+from qec_ldpc_tpu_torch.kernels import (
+    bp_cuda,
+    layered_cuda,
+    lifted_min_sum_cuda,
+    min_sum_cuda,
+)
 
 ALGORITHMS = ("sum-product", "min-sum", "layered-min-sum")
 
@@ -172,6 +178,20 @@ def lane_sort(syndrome: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return perm, torch.argsort(perm)
 
 
+def _sort_lanes(syndrome: torch.Tensor, cfg: BPConfig):
+    """``(the syndrome the kernel decodes, the inverse permutation or
+    None)``: in :func:`lane_sort` order where ``cfg.kernel_sort_lanes``."""
+    if not cfg.kernel_sort_lanes:
+        return syndrome, None
+    perm, inv = lane_sort(syndrome)
+    return syndrome[:, perm].contiguous(), inv
+
+
+def _unsort(out: torch.Tensor, lane_iters: torch.Tensor, inv):
+    """A kernel's outputs back in the lanes' given order."""
+    return (out, lane_iters) if inv is None else (out[:, inv], lane_iters[inv])
+
+
 def run_decoder(graph: CirculantGraph | LiftedGraph, syndrome: torch.Tensor,
                 prior: np.float32, cfg: BPConfig, plain: bool = False):
     """One graph through ``cfg.algorithm``'s kernel wrapper: ``(out,
@@ -191,10 +211,7 @@ def run_decoder(graph: CirculantGraph | LiftedGraph, syndrome: torch.Tensor,
             "layered-min-sum requires a CirculantGraph (block-row layers of "
             "a lifted graph are not variable-disjoint); use algorithm="
             "'min-sum' for lifted codes")
-    syn_k, inv = syndrome, None
-    if cfg.kernel_sort_lanes:
-        perm, inv = lane_sort(syndrome)
-        syn_k = syndrome[:, perm].contiguous()
+    syn_k, inv = _sort_lanes(syndrome, cfg)
     # the kernel wrappers and the plain loops take the same arguments
     if cfg.algorithm == "layered-min-sum":
         run = layered.layered_min_sum_run if plain else layered_cuda.layered_run
@@ -212,29 +229,59 @@ def run_decoder(graph: CirculantGraph | LiftedGraph, syndrome: torch.Tensor,
         out, lane_iters = run(graph, syn_k, *args)
     if plain:
         lane_iters = lane_iters.expand(syn_k.shape[1])
-    if inv is not None:
-        out, lane_iters = out[:, inv], lane_iters[inv]
-    return out, lane_iters
+    return _unsort(out, lane_iters, inv)
 
 
-def _decode_one_graph(graph: CirculantGraph | LiftedGraph,
-                      syndrome: torch.Tensor, prior: np.float32, cfg: BPConfig,
-                      plain: bool = False):
-    """One graph: ``(decisions, conv_fail, syn_fail, lane_iters, soft)``,
-    with ``lane_iters`` (batch,) each lane's executed iterations and
-    ``soft`` None unless ``cfg.return_soft``; ``plain`` as in
-    :func:`run_decoder`."""
-    out, lane_iters = run_decoder(graph, syndrome, prior, cfg, plain)
+def paired_path(graphs: CodeGraphs, cfg: BPConfig,
+                device: torch.device | str, plain: bool = False) -> bool:
+    """Whether both graphs can decode in one launch
+    (``lifted_min_sum_cuda.lifted_min_sum_pair_run``, K5 on both sectors):
+    on a CUDA device, not ``plain``, for min-sum on two lifted graphs that
+    share one plan (``lifted_min_sum_cuda.pair_plan``: one ``Dv``, every
+    array in shared memory).  A caller asks once, for all its calls of
+    :func:`run_decoders` (:func:`decode_batch` once a call, the Monte-Carlo
+    drivers once a point), and counts what it passed."""
+    return (torch.device(device).type == "cuda" and not plain
+            and cfg.algorithm == "min-sum"
+            and lifted_min_sum_cuda.pair_plan((graphs.x, graphs.z), False,
+                                              device) is not None)
+
+
+def run_decoders(graphs: CodeGraphs, syndromes, prior: np.float32,
+                 cfg: BPConfig, paired: bool, plain: bool = False):
+    """Both graphs, X then Z: :func:`run_decoder`'s two ``(out,
+    lane_iters)``.  ``paired``: the caller's :func:`paired_path` decision,
+    made once for all its calls.  Where it holds, one launch decodes both
+    (each sector's lanes sorted on their own first where
+    ``cfg.kernel_sort_lanes``), with each lane's result what two launches
+    give, bit for bit; otherwise one launch a graph."""
+    sx, sz = syndromes
+    if not paired:
+        return (run_decoder(graphs.x, sx, prior, cfg, plain),
+                run_decoder(graphs.z, sz, prior, cfg, plain))
+    (sx_k, inv_x), (sz_k, inv_z) = (_sort_lanes(s, cfg) for s in syndromes)
+    with tracing.span("mc.launch"):
+        (vx, itx), (vz, itz) = lifted_min_sum_cuda.lifted_min_sum_pair_run(
+            (graphs.x, graphs.z), (sx_k, sz_k), prior_llr(prior),
+            cfg.max_iters, cfg.check_every, cfg.conv_low, cfg.min_sum_alpha)
+    return _unsort(vx, itx, inv_x), _unsort(vz, itz, inv_z)
+
+
+def _finish_graph(graph: CirculantGraph | LiftedGraph, syndrome: torch.Tensor,
+                  out: torch.Tensor, cfg: BPConfig):
+    """One graph's decoder output ``out`` (:func:`run_decoder`'s):
+    ``(decisions, conv_fail, syn_fail, soft)``, ``soft`` None unless
+    ``cfg.return_soft``."""
     if cfg.algorithm == "layered-min-sum":
         # layered keeps posteriors: the decision is q <= 0, and "failed to
         # converge" is "the decision violates the syndrome"
         decisions = (out <= 0.0).to(torch.int8)
         syn_fail = syndrome_fail(graph, decisions, syndrome)
         # layered q IS the posterior
-        return (decisions, syn_fail, syn_fail, lane_iters,
+        return (decisions, syn_fail, syn_fail,
                 out if cfg.return_soft else None)
     soft = soft_output(graph, out, cfg) if cfg.return_soft else None
-    return (*decide(graph, out, syndrome, cfg), lane_iters, soft)
+    return (*decide(graph, out, syndrome, cfg), soft)
 
 
 def decode_batch(
@@ -254,7 +301,9 @@ def decode_batch(
     kernels count per 128-lane tile); iterations x batch on the plain path,
     as in JAX.  ``plain``: run the plain PyTorch version on CUDA tensors too
     (decoder/validate.py's engine: a CUDA kernel cannot be instrumented);
-    on CPU tensors it always runs."""
+    on CPU tensors it always runs.  Both graphs go through
+    :func:`run_decoders`, so min-sum on a lifted code whose two graphs share
+    one plan decodes them in one launch on a card (:func:`paired_path`)."""
     if cfg.algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}; expected one "
                          f"of {ALGORITHMS}")
@@ -264,13 +313,19 @@ def decode_batch(
             "routes by index")
     prior = np.float32(cfg.prior_factor) * np.float32(error_probability)
     out, ec = [], None
-    for graph, syndrome, syn_bit, conv_bit in (
-            (graphs.x, syndrome_x, SYNDROME_FAIL_X, CONVERGENCE_FAIL_X),
-            (graphs.z, syndrome_z, SYNDROME_FAIL_Z, CONVERGENCE_FAIL_Z)):
-        with tracing.span("mc.decode"):
-            syndrome = syndrome.to(torch.int32).contiguous()
-            decisions, conv_fail, syn_fail, lane_iters, soft = (
-                _decode_one_graph(graph, syndrome, prior, cfg, plain))
+    with tracing.span("mc.decode"):
+        syndromes = [s.to(torch.int32).contiguous()
+                     for s in (syndrome_x, syndrome_z)]
+        decoded = run_decoders(
+            graphs, syndromes, prior, cfg,
+            paired_path(graphs, cfg, syndromes[0].device, plain), plain)
+        for graph, syndrome, (v, lane_iters), syn_bit, conv_bit in (
+                (graphs.x, syndromes[0], decoded[0], SYNDROME_FAIL_X,
+                 CONVERGENCE_FAIL_X),
+                (graphs.z, syndromes[1], decoded[1], SYNDROME_FAIL_Z,
+                 CONVERGENCE_FAIL_Z)):
+            decisions, conv_fail, syn_fail, soft = _finish_graph(
+                graph, syndrome, v, cfg)
             # each graph's error-code bits (error_code's, one graph at a time)
             bits = (syn_fail.to(torch.int32) * syn_bit
                     + conv_fail.to(torch.int32) * conv_bit)

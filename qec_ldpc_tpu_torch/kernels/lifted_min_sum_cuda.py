@@ -19,6 +19,17 @@ tensor it runs the plain version, ``decoder/min_sum.min_sum_run``.  There is
 no fallback: a CUDA tensor either runs the kernel or raises (a launch the
 card refuses, for shared memory or threads, raises too).  ``launches``
 counts kernel launches (never the plain path).
+
+:func:`lifted_min_sum_pair_run` decodes both sectors of a chunk, X and Z, in
+ONE launch of the same kernel: the grid interleaves the two sectors' lanes,
+so the few lanes of each that run on to ``max_iters`` overlap with each
+other and with the other sector's bulk, where two launches would pay that
+tail twice.  It takes the pair only where :func:`pair_plan` holds (both
+graphs lifted, of one ``Dv`` and one plan with every array in shared
+memory, undamped), and raises otherwise: the caller decides first
+(``decoder/decode.py::paired_path``) and runs two one-sector launches where
+the pair does not hold.  Each lane's messages and ``iters`` are
+those of a one-sector launch, bit for bit.
 """
 
 from __future__ import annotations
@@ -49,12 +60,28 @@ ARGTYPES = [
 ]
 
 
+#: the C types of ``qec_lifted_min_sum_pair``'s parameters, in order: each
+#: sector's syndrome, messages, iteration counts and description, then what
+#: the two share
+_SECTOR_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    *launch.LIFTED_ARGTYPES]
+PAIR_ARGTYPES = [
+    *_SECTOR_ARGTYPES, *_SECTOR_ARGTYPES,
+    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_void_p,
+]
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """The built library with the launcher's C signature declared."""
+    """The built library with the launchers' C signatures declared."""
     lib = build.load("qec_lifted_min_sum", SOURCES)
     lib.qec_lifted_min_sum.argtypes = ARGTYPES
     lib.qec_lifted_min_sum.restype = ctypes.c_int
+    lib.qec_lifted_min_sum_pair.argtypes = PAIR_ARGTYPES
+    lib.qec_lifted_min_sum_pair.restype = ctypes.c_int
     return lib
 
 
@@ -110,3 +137,72 @@ def lifted_min_sum_run(
     launch.raise_on_error("qec_lifted_min_sum", err)
     launches += 1
     return v, iters
+
+
+def pair_plan(graphs, damped: bool,
+              device: torch.device) -> placement.Plan | None:
+    """The plan both sectors of one launch share, or None where the pair
+    does not hold: a CUDA ``device``, two ``LiftedGraph`` of one variable
+    degree (the kernel's ``kDv``), undamped, and one ``placement.plan`` for
+    both with every array in shared memory (no slab).  Each condition is
+    one the call can see in its input; the device's shared-memory limit is
+    read only once the graphs pass."""
+    device = torch.device(device)
+    if (device.type != "cuda" or damped
+            or not all(isinstance(g, LiftedGraph) for g in graphs)
+            or len({g.var_degree for g in graphs}) != 1):
+        return None
+    index = torch.cuda.current_device() if device.index is None else device.index
+    limit = placement.smem_optin(index)
+    px, pz = (placement.plan(g, False, limit) for g in graphs)
+    return px if px == pz and px.slab_floats == 0 else None
+
+
+def _sector_args(graph: LiftedGraph, syndrome: torch.Tensor, v: torch.Tensor,
+                 iters: torch.Tensor) -> tuple:
+    return (syndrome.data_ptr(), v.data_ptr(), iters.data_ptr(),
+            *launch.lifted_description(graph))
+
+
+def lifted_min_sum_pair_run(
+    graphs,                    # (X graph, Z graph), both LiftedGraph
+    syndromes,                 # (sx, sz), each (num_checks, batch) int32
+    prior_llr: float,
+    max_iters: int,
+    check_every: int = 10,
+    conv_low: float = 0.01,
+    alpha: float = 0.75,
+) -> tuple[tuple[torch.Tensor, torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
+    """Both sectors in one launch: ``((v_x, iters_x), (v_z, iters_z))``,
+    each what :func:`lifted_min_sum_run` returns for that sector alone on
+    the card, bit for bit.  Raises where :func:`pair_plan` does not hold or
+    the syndromes are not contiguous CUDA tensors of one device and one
+    batch; counts one launch."""
+    global launches
+    (gx, gz), (sx, sz) = graphs, syndromes
+    for g, s in ((gx, sx), (gz, sz)):
+        launch.check_run_args(g, s, max_iters, check_every, LiftedGraph)
+        launch.check_lifted_cuda_args(g, s)
+    if sx.device != sz.device or sx.shape[1] != sz.shape[1]:
+        raise ValueError("the two sectors lie on different devices or hold "
+                         "different batches")
+    pl = pair_plan(graphs, False, sx.device)
+    if pl is None:
+        raise ValueError("these two graphs cannot share one launch "
+                         "(pair_plan): decode them one sector at a time")
+    lib = _library()
+    batch = sx.shape[1]
+    outs = [(torch.empty((g.num_edges, batch), dtype=torch.float32,
+                         device=sx.device),
+             torch.empty((batch,), dtype=torch.int32, device=sx.device))
+            for g in graphs]
+    with torch.cuda.device(sx.device):
+        err = lib.qec_lifted_min_sum_pair(
+            *_sector_args(gx, sx, *outs[0]), *_sector_args(gz, sz, *outs[1]),
+            batch, min_sum.f32(prior_llr), max_iters, check_every,
+            min_sum.f32(min_sum.np_log_band(conv_low)), min_sum.f32(alpha),
+            pl.threads, pl.v_shared, pl.state_shared, pl.smem_bytes,
+            launch.stream_of(sx.device))
+    launch.raise_on_error("qec_lifted_min_sum_pair", err)
+    launches += 1
+    return outs[0], outs[1]

@@ -141,20 +141,25 @@ def accumulators(device: torch.device | str):
             torch.empty(2, dtype=torch.int64, device=device))
 
 
-def chunk_group(run, chunk_ids, into, fused: bool | None = None):
+def chunk_group(run, chunk_ids, into, fused: bool | None = None,
+                paired: bool | None = None):
     """The chunks ``chunk_ids`` of one group summed into ``into``
     (:func:`accumulators`, zeroed first): ``run(c, into)`` adds chunk ``c``,
-    under the span ``mc.chunk``.  ``fused``, the point's decision whether a
-    chunk decides and classifies in one kernel, counts 1 or 0 a chunk in
-    ``classify.fused`` (None: nothing).  Returns ``into``."""
+    under the span ``mc.chunk``.  The point's decisions count 1 or 0 a
+    chunk (None: nothing): ``fused``, whether a chunk decides and
+    classifies in one kernel, in ``classify.fused``; ``paired``, whether
+    its two graphs decode in one launch (``decode.paired_path``), in
+    ``decode.paired``.  Returns ``into``."""
     for acc in into:
         acc.zero_()
-    n_fused = None if fused is None else int(fused)
+    counts = [(name, int(flag)) for name, flag in
+              (("classify.fused", fused), ("decode.paired", paired))
+              if flag is not None]
     for c in chunk_ids:
         with tracing.span("mc.chunk", c):
             run(c, into)
-            if n_fused is not None:
-                tracing.count("classify.fused", n_fused)
+            for name, n in counts:
+                tracing.count(name, n)
     return into
 
 

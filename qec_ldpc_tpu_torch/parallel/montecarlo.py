@@ -13,8 +13,9 @@ live beneath this module and parallel/mc_graph.py, in parallel/chunk.py.
 A group of ``steps_per_call`` chunks adds into counters on the device,
 which the host reads once.  How a chunk runs is decided once a point: a
 replay of a CUDA graph of the whole pipeline (:func:`graph_path`,
-:class:`_ChunkGraph`), and one kernel from the decoders' final messages to
-the counters (:func:`fused_path`, kernels/classify_cuda.py).
+:class:`_ChunkGraph`), one kernel from the decoders' final messages to
+the counters (:func:`fused_path`, kernels/classify_cuda.py), and one launch
+for both graphs' decode (``decode.paired_path``, K5 on lifted codes).
 
 With a ``mesh`` (parallel/mesh.py) every rank runs the same call and gets
 the same totals: each data rank decodes its lanes from generators of (seed,
@@ -51,7 +52,8 @@ from qec_ldpc_tpu_torch.decoder.decode import (
     SYNDROME_FAIL_Z,
     CodeGraphs,
     decode_batch,
-    run_decoder,
+    paired_path,
+    run_decoders,
 )
 from qec_ldpc_tpu_torch.decoder.osd import CSSPostprocessor, splice
 from qec_ldpc_tpu_torch.decoder.relay import RelayDraws, relay_decode_batch
@@ -137,7 +139,7 @@ def _chunk_body(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
                 batch: int, error_model: str, relay_retries: int = 0,
                 draws: RelayDraws | None = None,
                 weight_cap: int | None = None, *, fused: bool = False,
-                into=None):
+                paired: bool = False, into=None):
     """Sample + decode + classify one batch, added into ``into``, a pair of
     int64 device accumulators (counters[NUM_COUNTERS], iters[2]), fresh
     zeros when None, which it returns; iters are the executed BP
@@ -146,7 +148,9 @@ def _chunk_body(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
     ``fused``: the point's :func:`fused_path` decision.  Where it holds, the
     decoders' final messages go to ``classify_cuda.decide_classify`` (its
     tables from ``prepare``, made in the point's set-up), which adds the
-    chunk into the accumulators."""
+    chunk into the accumulators, and ``paired``, the point's
+    ``decode.paired_path`` decision, says whether the two graphs decode in
+    one launch."""
     if into is None:
         into = (torch.zeros(NUM_COUNTERS, dtype=torch.int64,
                             device=generator.device),
@@ -156,11 +160,9 @@ def _chunk_body(graphs: CodeGraphs, i_minus_p, generator: torch.Generator,
             graphs, generator, weight, error_probability, batch, error_model,
             weight_cap)
         prior = np.float32(cfg.prior_factor) * np.float32(error_probability)
-        decoded = []
-        for graph, syndrome in ((graphs.x, sx), (graphs.z, sz)):
-            with tracing.span("mc.decode"):
-                decoded.append(run_decoder(graph, syndrome, prior, cfg))
-        (vx, itx), (vz, itz) = decoded
+        with tracing.span("mc.decode"):
+            (vx, itx), (vz, itz) = run_decoders(graphs, (sx, sz), prior,
+                                                cfg, paired)
         with tracing.span("mc.classify"):
             classify_cuda.decide_classify(
                 classify_cuda.prepare(graphs, i_minus_p), cfg, (vx, vz),
@@ -184,7 +186,8 @@ def _chunk_runner(graphs: CodeGraphs, i_minus_p, seed: int, weight: int,
                   error_probability: float, cfg: BPConfig, batch: int,
                   error_model: str, relay_retries: int,
                   weight_cap: int | None, fused: bool, device: torch.device,
-                  shard: tuple[int, ...] = (), replay: bool = False):
+                  shard: tuple[int, ...] = (), replay: bool = False,
+                  paired: bool = False):
     """:func:`chunk_group`'s ``run(c, into)`` for a point's chunks through
     :func:`_chunk_body`: replayed from a CUDA graph (:class:`_ChunkGraph`)
     where ``replay``, else eager on the generators of (seed, c, ``shard``),
@@ -193,7 +196,7 @@ def _chunk_runner(graphs: CodeGraphs, i_minus_p, seed: int, weight: int,
         _chunk_body, graphs, i_minus_p, weight=weight,
         error_probability=error_probability, cfg=cfg, batch=batch,
         error_model=error_model, relay_retries=relay_retries,
-        weight_cap=weight_cap, fused=fused)
+        weight_cap=weight_cap, fused=fused, paired=paired)
     if replay:
         return _ChunkGraph(body, device, seed).run
 
@@ -337,11 +340,14 @@ def mc_chunk(graphs: CodeGraphs, i_minus_p, seed: int, chunk: int,
     device = torch.device(device)
     i_minus_p = _resolve_logical_test(graphs, i_minus_p, device)
     fused = fused_path(device, relay_retries, cfg, i_minus_p)
+    paired = paired_path(graphs, cfg, device)
     out = _chunk_body(graphs, i_minus_p, chunk_generator(seed, chunk, device),
                       weight, error_probability, cfg, batch, error_model,
                       relay_retries, relay_draws(seed, chunk, device)
-                      if relay_retries > 0 else None, weight_cap, fused=fused)
+                      if relay_retries > 0 else None, weight_cap, fused=fused,
+                      paired=paired)
     tracing.count("classify.fused", int(fused))
+    tracing.count("decode.paired", int(paired))
     return out
 
 
@@ -387,12 +393,13 @@ def make_sharded_chunk(mesh: Mesh, graphs: CodeGraphs, weight: int,
     def chunk_fn(i_minus_p, seed, error_probability, chunk_ids, *, device):
         device = torch.device(device)
         fused = fused_path(device, relay_retries, cfg, i_minus_p)
+        paired = paired_path(graphs, cfg, device)
         run = _chunk_runner(graphs, i_minus_p, seed, weight,
                             error_probability, cfg, batch_per_device,
                             error_model, relay_retries, weight_cap, fused,
-                            device, (didx,))
+                            device, (didx,), paired=paired)
         return reduce_over_data(mesh, *chunk_group(
-            run, chunk_ids, accumulators(device), fused))
+            run, chunk_ids, accumulators(device), fused, paired))
 
     return chunk_fn
 
@@ -477,14 +484,16 @@ def run_monte_carlo(
             else:
                 if replaying and device.index is None:
                     device = torch.device("cuda", torch.cuda.current_device())
+                paired = paired_path(graphs, cfg, device)
                 run = _chunk_runner(graphs, i_minus_p, seed, weight,
                                     error_probability, cfg, batch_size,
                                     error_model, relay_retries, weight_cap,
-                                    fused, device, replay=replaying)
+                                    fused, device, replay=replaying,
+                                    paired=paired)
                 into = accumulators(device)
 
                 def run_group(ids):
-                    return chunk_group(run, ids, into, fused)
+                    return chunk_group(run, ids, into, fused, paired)
             num_chunks = -(-count // _chunk_samples(batch_size, mesh))
             steps_per_call = effective_steps_per_call(
                 count, batch_size, steps_per_call, mesh)
@@ -638,16 +647,19 @@ def run_monte_carlo_osd(
             if lam >= 0:
                 cfg = dataclasses.replace(cfg, return_soft=True)
                 post = CSSPostprocessor(graphs, lam=lam).to(device)
+            sharded = mesh is not None and mesh.size(GRAPH_AXIS) > 1
             chunk_fn = (make_graph_sharded_osd_chunk(
                 mesh, graphs, weight, cfg, batch_size, error_model,
-                relay_retries) if mesh is not None
-                and mesh.size(GRAPH_AXIS) > 1
+                relay_retries) if sharded
                 else make_osd_chunk(graphs, weight, cfg, batch_size,
                                     error_model, relay_retries, mesh))
+            # the graph-sharded engines decode one graph at a time
+            paired = int(not sharded and paired_path(graphs, cfg, device))
             num_chunks = -(-count // batch_size)
 
         def dispatch(c):
             with tracing.span("mc.chunk", c):
+                tracing.count("decode.paired", paired)
                 return c, chunk_fn(i_minus_p, seed, c, error_probability,
                                    device=device)
 

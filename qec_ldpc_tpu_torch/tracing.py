@@ -8,9 +8,10 @@ a blocking read of the device (``mc.fetch``) and set-up (``setup.graphs``,
 ``setup.logical``, ``kernels.load``).  A counter adds up values already on
 the host (``relay.retries``, ``osd.lanes``, ``osd.system_bits``: the bits of
 the augmented systems OSD eliminates, ``kernels.builds``, and the
-driver's ``mc.graph_captures``, ``mc.graph_replays`` and ``classify.fused``,
-the chunks counted by the fused decide/classify kernel).  Neither
-adds a device operation or a host read.
+driver's ``mc.graph_captures``, ``mc.graph_replays``, ``classify.fused``,
+the chunks counted by the fused decide/classify kernel, and
+``decode.paired``, the chunks whose two graphs decode in one launch).
+Neither adds a device operation or a host read.
 
 Recording is off by default: :func:`span` then returns one shared no-op
 object and :func:`count` returns at once, so the off path costs a global

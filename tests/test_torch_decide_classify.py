@@ -407,7 +407,8 @@ def test_graph_path_counts_what_eager_chunks_count(cuda_device, cards, name,
     replayed) counts, group by group, what eager chunks count through the
     group loop (``chunk_group``) on the same seed, counters and lane-iterations, and what the unfused
     composition (``decode_batch`` + ``classify_batch``) counts; every chunk
-    adds 1 to ``classify.fused``."""
+    adds 1 to ``classify.fused``, and on the gross code 1 to
+    ``decode.paired``."""
     graphs, test, weight, p, model = _on_card(cards, name, cuda_device)
     cfg = BPConfig(max_iters=100, algorithm=algorithm)
     batch, chunks, seed = 2048, 6, 2**40 + 9
@@ -420,6 +421,8 @@ def test_graph_path_counts_what_eager_chunks_count(cuda_device, cards, name,
                         progress=lambda g, ng, c, it: groups.append((c, it)))
     assert rec.counters["mc.graph_replays"] == chunks - 1
     assert rec.counters["classify.fused"] == chunks
+    # the gross code's two graphs decode in one K5 launch a chunk
+    assert rec.counters["decode.paired"] == chunks * (name == "gross")
     assert classify_cuda.launches == launches + 2  # eager chunk, capture
     fused = fused_path(cuda_device, 0, cfg, test)
     eager = montecarlo._chunk_runner(graphs, test, seed, weight, p, cfg,

@@ -20,8 +20,10 @@ from qec_ldpc_tpu_torch.parallel.montecarlo import (
 torch.set_num_threads(1)
 
 BATCH, COUNT, SEED = 64, 256, 11
-#: spans a chunk holds, each with the chunk's id (relay and OSD add theirs)
-PER_CHUNK = {"mc.chunk": 1, "mc.sample": 2, "mc.decode": 2, "mc.launch": 2,
+#: spans a chunk holds, each with the chunk's id (relay and OSD add theirs):
+#: one ``mc.decode`` for both graphs, one ``mc.launch`` a graph (the CPU
+#: never pairs the two)
+PER_CHUNK = {"mc.chunk": 1, "mc.sample": 2, "mc.decode": 1, "mc.launch": 2,
              "mc.classify": 1}
 #: spans whose children belong to several chunks
 SHARED = {"mc.point", "mc.point_setup", "mc.group"}
@@ -107,9 +109,10 @@ def test_plain_run_spans(graphs):
     for name, _, _, parent, _ in rec.spans:
         if name == tracing.OUTSIDE:
             assert rec.spans[parent][0] == "mc.point"
-    # the CPU runs every chunk eagerly: no capture, no replay, and no
-    # fused classification
-    assert rec.counters == {"mc.graph_replays": 0, "classify.fused": 0}
+    # the CPU runs every chunk eagerly: no capture, no replay, no fused
+    # classification and no paired decode
+    assert rec.counters == {"mc.graph_replays": 0, "classify.fused": 0,
+                            "decode.paired": 0}
 
 
 def test_relay_counts_its_retries(graphs, monkeypatch):
@@ -127,7 +130,8 @@ def test_relay_counts_its_retries(graphs, monkeypatch):
     check_tree(rec)
     assert sum(used) > 0
     assert rec.counters == {"relay.retries": sum(used),
-                            "mc.graph_replays": 0, "classify.fused": 0}
+                            "mc.graph_replays": 0, "classify.fused": 0,
+                            "decode.paired": 0}
     for c, spans in sorted(by_chunk(rec).items()):
         assert spans["mc.relay"] == 2
         # one kernel call per retry, one flag read per retry and graph
@@ -155,7 +159,8 @@ def test_osd_counts_its_lanes(graphs, monkeypatch):
     check_tree(rec)
     assert sum(lanes) > 0
     assert rec.counters == {"osd.lanes": sum(lanes),
-                            "osd.system_bits": sum(bits)}
+                            "osd.system_bits": sum(bits),
+                            "decode.paired": 0}
     chunks = by_chunk(rec)
     assert sorted(chunks) == list(range(COUNT // BATCH))
     for c, spans in chunks.items():
